@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 The sources in ``csrc/`` have a plain C interface. ``kernels()`` compiles
-them with ``nvcc`` into one shared library for Hopper (``sm_90a``), loads
+them with ``nvcc`` for Hopper (``sm_90a``), one process per source, all in
+parallel, links them into one shared library, loads
 it and declares every entry's argument types: each pointer and the stream
 are ``c_void_p`` (a bare Python int would be cut to 32 bits), each size a
 ``c_int``. The library lands in ``_build/`` beside this file (git-ignored)
@@ -10,7 +11,8 @@ rebuilt and an unchanged one is loaded as it is.
 
 No ``--use_fast_math``: the DTW kernel must match its plain version
 exactly, and its tie-breaks depend on IEEE adds and compares; the
-attention kernel uses the precise ``expf``.
+attention and decode-step kernels use the precise ``expf``, ``erff`` and
+division.
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 raises on anything but 0, because a refused launch never runs and a later
@@ -32,9 +34,9 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("encoder_attention.cu", "dtw.cu")
+SOURCES = ("encoder_attention.cu", "dtw.cu", "decode_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 @dataclass(frozen=True)
@@ -65,21 +67,40 @@ def _digest() -> str:
 
 
 def _build() -> tuple[Path, float, str]:
+    """Compile every source to an object with one ``nvcc`` each, all
+    started together (the first build is on the smoke's clock), then link
+    them into one shared library."""
     so = BUILD_DIR / f"libcw_kernels_{_digest()}.so"
     if so.exists():
         return so, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(n).stem}.o" for n in SOURCES]
+    tmp = so.with_name(f"{tag}.so.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC / name)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    try:
+        logs = [proc.communicate()[0] for proc in procs]
+        for name, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} (exit code "
+                                   f"{proc.returncode}):\n{log}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link (exit code "
+                               f"{link.returncode}):\n{link.stdout}"
+                               f"{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)            # atomic: a concurrent loader sees all or
-    return so, seconds, proc.stderr  # nothing
+    return so, time.perf_counter() - t0, "".join(logs)  # nothing
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,6 +114,9 @@ def kernels() -> Kernels:
     lib.cw_encoder_attention.restype = i32
     lib.cw_dtw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cw_dtw.restype = i32
+    lib.cw_decode_step.argtypes = [ptr] * 14 + [i32] * 12 + [
+        ctypes.c_float, ptr]
+    lib.cw_decode_step.restype = i32
     lib.cw_error_string.argtypes = [i32]
     lib.cw_error_string.restype = ctypes.c_char_p
     return Kernels(lib=lib, path=path, build_seconds=seconds, ptxas_log=log)

@@ -6,9 +6,10 @@ Usage:
         [--timestamps word] [--adjust-pauses 0.12] [--json]
 
 The flags are those of crisperwhisper_tpu.cli. The model runs on CUDA
-when a card is present, else on the CPU. Options outside the port's slice
-(--quantize int8|serving, --num-beams > 1, --assistant, --prompt) stop
-with a message and exit code 1.
+when a card is present, else on the CPU. ``--quantize int8|serving`` loads
+the quantized decoder (hub.load_pipeline's ``quantize``). Options outside
+the port's slice (--num-beams > 1, --assistant, --prompt) stop with a
+message and exit code 1.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import sys
 
 # flag -> (is it outside the slice?, ROADMAP queue-1 item)
 _UNPORTED = {
-    "--quantize": (lambda a: a.quantize != "none", 10),
     "--num-beams": (lambda a: a.num_beams > 1, 11),
     "--prompt": (lambda a: a.prompt is not None, 12),
     "--assistant": (lambda a: a.assistant is not None, 13),
@@ -44,7 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Apply pause redistribution (e.g. 0.12)")
     p.add_argument("--quantize", type=str, default="none",
                    choices=["none", "int8", "serving"],
-                   help="Serving quantization (not ported yet)")
+                   help="Serving quantization: int8 decoder weights "
+                        "with an int8 cross cache (int8), or with an int4 "
+                        "cross cache and an int8 self ring (serving)")
     p.add_argument("--prompt", type=str, default=None,
                    help="Domain-vocabulary bias text (not ported yet)")
     p.add_argument("--assistant", type=str, default=None, metavar="MODE",
@@ -72,6 +74,8 @@ def main(argv=None) -> int:
         rt = {"word": "word", "segment": True, "none": False}[args.timestamps]
         pipe = load_pipeline(
             args.model, language=args.language,
+            quantize={"none": False, "int8": True,
+                      "serving": "serving"}[args.quantize],
             pipe_opts=PipelineOptions(chunk_length_s=args.chunk_length_s,
                                       batch_size=args.batch_size,
                                       return_timestamps=rt))

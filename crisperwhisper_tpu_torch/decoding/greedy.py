@@ -5,6 +5,12 @@ whole decode as one ``lax.while_loop``; here it is a Python loop over
 steps whose state stays on the device: prompt prefill, logits processing,
 sampling, grammar state, alignment capture and EOS bookkeeping. The host
 reads one flag per step (have all rows finished?).
+
+With ``opts.b1_decode_kernel`` and a quantized serving cache, each step
+runs as one whole-step kernel (ops/decode_step.py): ``decode_step_b1`` at
+batch 1, ``decode_step_rows`` at 2-8 rows, under the reference's gates
+(greedy.py:160-201); anything else takes models/whisper.decode_step. The
+port reads only the live ring prefix, so it has no staged ring growth.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from crisperwhisper_tpu.config import (GenerationOptions, SpecialTokens,
                                        WhisperArch)
 
 from ..models.whisper import decode_step, decode_step_multi, init_cache
+from ..ops import decode_step as step_kernel
 from .processors import TimestampState, process_scores
 
 
@@ -55,7 +62,9 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
                   return_timestamps: bool = True,
                   temperature: float = 0.0,
                   generator: torch.Generator | None = None,
-                  sot_position: int = 0) -> DecodeResult:
+                  sot_position: int = 0,
+                  cross_cache_dtype: str | None = None,
+                  self_cache_dtype: str | None = None) -> DecodeResult:
     """Decode a batch against precomputed encoder states.
 
     prompt: [B, P] int forced prefix (e.g. [sot, lang, task]).
@@ -63,6 +72,8 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
       softmax(scores / temperature), drawn from ``generator`` (a
       torch.Generator on the device; the fallback ladder re-invokes this
       with higher temperatures).
+    cross_cache_dtype/self_cache_dtype: None, "int8" or "int4" — the
+      quantized cache halves of models/whisper.init_cache.
     """
     b, p = prompt.shape
     dev = encoder_out.device
@@ -74,7 +85,9 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     n_align = align_sel.shape[-1] if align_sel is not None else 1
     eot = specials.eot
 
-    cache = init_cache(params, arch, encoder_out, cache_len=t_total)
+    cache = init_cache(params, arch, encoder_out, cache_len=t_total,
+                       cross_dtype=cross_cache_dtype,
+                       self_dtype=self_cache_dtype)
     prompt = prompt.to(device=dev, dtype=torch.long)
     tokens = torch.cat([prompt, torch.full((b, max_new_tokens), eot,
                                            dtype=torch.long, device=dev)], 1)
@@ -97,9 +110,20 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     align_buf = torch.zeros((b, n_align, max_new_tokens, k_frames),
                             dtype=torch.float32, device=dev)
 
+    # the whole-step kernel, decided once per decode as in the reference
+    use_b1_kernel = (opts.b1_decode_kernel and b == 1
+                     and step_kernel.supported(params, arch, cache, None, 1,
+                                               0, prompt[:, 0]))
+    use_rows_kernel = (opts.b1_decode_kernel and not use_b1_kernel
+                       and step_kernel.supported_rows(params, arch, cache,
+                                                      None, 0, prompt[:, 0]))
+    step = (step_kernel.decode_step_b1 if use_b1_kernel
+            else step_kernel.decode_step_rows if use_rows_kernel
+            else decode_step)
+
     while t < t_total - 1 and not bool(finished.all()):
-        logits, cache, align = decode_step(params, arch, tokens[:, t], t,
-                                           cache, align_sel=align_sel)
+        logits, cache, align = step(params, arch, tokens[:, t], t, cache,
+                                    align_sel=align_sel)
         if t >= p:
             # record alignment rows for generated-query steps
             slot = align_buf[:, :, t - p]

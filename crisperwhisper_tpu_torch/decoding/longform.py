@@ -10,10 +10,12 @@ Batch shrink (hf _maybe_reduce_batch :1837-1851) keeps the reference's
 power-of-2 compaction: finished rows drop out and the live rows re-pack
 into the next power-of-2 bucket, so a batch takes at most log2(B) shapes.
 
-Outside this port's slice (each raises NotImplementedError naming its
-ROADMAP queue-1 item): beam search (11), prompt_ids and
-condition_on_prev_tokens (12), speculative assistants (13), quantized
-caches (10).
+Quantized caches (``kv_cache_int8``/``int4``, ``self_kv_cache_int8``/
+``int4``) map to init_cache's cache dtypes as in the reference
+(longform.py:42-51). Outside this port's slice (each raises
+NotImplementedError naming its ROADMAP queue-1 item): beam search (11),
+prompt_ids and condition_on_prev_tokens (12), speculative assistants
+(13).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from crisperwhisper_tpu.config import (GenerationOptions, SpecialTokens,
                                        WhisperArch)
 
-from ..models.whisper import alignment_selector, encode
+from ..models.whisper import INT4, INT8, alignment_selector, encode
 from ..ops.alignment import attention_to_jump_times
 from .fallback import need_fallback
 from .generate import build_prompt
@@ -60,11 +62,18 @@ def check_supported(opts: GenerationOptions) -> None:
     if opts.prompt_lookup:
         raise NotImplementedError("speculative decoding is not ported yet "
                                   "(ROADMAP queue 1, item 13)")
-    if (opts.kv_cache_int8 or opts.kv_cache_int4 or opts.self_kv_cache_int8
-            or opts.self_kv_cache_int4):
-        raise NotImplementedError(
-            "quantized KV caches are not ported yet (ROADMAP queue 1, "
-            "item 10)")
+
+
+def _kv_dtype(opts: GenerationOptions) -> str | None:
+    if opts.kv_cache_int4:
+        return INT4
+    return INT8 if opts.kv_cache_int8 else None
+
+
+def _self_kv_dtype(opts: GenerationOptions) -> str | None:
+    if opts.self_kv_cache_int4:
+        return INT4
+    return INT8 if opts.self_kv_cache_int8 else None
 
 
 def _decode_window(params, arch, specials, opts, segment_features,
@@ -79,7 +88,8 @@ def _decode_window(params, arch, specials, opts, segment_features,
         max_new_tokens=max_new, suppress_mask=suppress,
         begin_suppress_mask=begin_suppress, align_sel=align_sel,
         return_timestamps=opts.return_timestamps, temperature=temperature,
-        generator=generator)
+        generator=generator, cross_cache_dtype=_kv_dtype(opts),
+        self_cache_dtype=_self_kv_dtype(opts))
     outs = [res.sequences, res.num_generated, res.sum_logprobs,
             res.no_speech_probs]
     if align_sel is not None:

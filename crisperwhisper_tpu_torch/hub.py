@@ -138,11 +138,19 @@ def load_pipeline(model_dir: str, *,
     device: where the model runs (default: CUDA when available, else the
     CPU). params: an already-built parameter dict in the loader's layout
     (e.g. models.whisper.init_params on the card) — skips the safetensors
-    read. quantize and assistant are outside the port's slice and raise
-    NotImplementedError (ROADMAP queue 1, items 10 and 13)."""
-    if quantize:
-        raise NotImplementedError("quantized serving is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+    read.
+
+    quantize: True fuses the decoder's q/k/v (query scale folded in) and
+    quantizes its dense weights to int8 per output channel, with an int8
+    cross cache; "serving" does the same with an int4 cross cache and an
+    int8 self ring — the reference's benched serving configuration, whose
+    decode steps run as one kernel with ``gen_opts.b1_decode_kernel``
+    (ops/decode_step.py). It applies to ``params`` too. assistant is
+    outside the port's slice and raises NotImplementedError (ROADMAP
+    queue 1, item 13)."""
+    if isinstance(quantize, str) and quantize != "serving":
+        raise ValueError(f"quantize={quantize!r}: use False, True, or "
+                         "'serving'")
     if assistant is not None:
         raise NotImplementedError("speculative decoding is not ported yet "
                                   "(ROADMAP queue 1, item 13)")
@@ -153,6 +161,10 @@ def load_pipeline(model_dir: str, *,
     arch = WhisperArch.from_hf_config(cfgs["config"])
     if params is None:
         params, _ = load_params(model_dir, arch, dtype=dtype, device=device)
+    if quantize:
+        from .models.quantize import fuse_decoder_qkv, quantize_decoder_weights
+        params = quantize_decoder_weights(fuse_decoder_qkv(params,
+                                                           arch.head_dim))
     tokenizer = WhisperTokenizer.from_dir(model_dir)
 
     opts = gen_opts or load_generation_options(cfgs["generation_config"])
@@ -164,6 +176,11 @@ def load_pipeline(model_dir: str, *,
         kw["median_filter_width"] = mfw
     if language:
         kw["language"] = language
+    if quantize == "serving":
+        kw["kv_cache_int4"] = True
+        kw["self_kv_cache_int8"] = True
+    elif quantize:
+        kw["kv_cache_int8"] = True
     if kw:
         opts = replace(opts, **kw)
 

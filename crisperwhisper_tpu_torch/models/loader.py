@@ -29,6 +29,7 @@ from .whisper import Params
 
 _ATTN_MAP = {"q_proj": "q", "k_proj": "k", "v_proj": "v", "out_proj": "o"}
 _F32_KEYS = {"ln", "ln1", "ln2", "ln3", "ln_post"}
+_KEEP = {"w_scale": torch.bfloat16}     # quantized dense scales stay bf16
 
 # safetensors dtype tag -> (numpy storage dtype, torch dtype)
 _ST_DTYPES = {
@@ -96,16 +97,18 @@ def _set(tree: dict, path: tuple, value: Any) -> None:
 def _finish(tree: dict, arch: WhisperArch, dtype: torch.dtype,
             device: torch.device | str) -> Params:
     """Cast (LayerNorms stay f32: bf16-rounded affine params move logits
-    enough to shift DTW jumps) and move every leaf to the device."""
-    def cast(node, keep_f32=False):
+    enough to shift DTW jumps; int8 weights and their bf16 scales stay as
+    quantized) and move every leaf to the device."""
+    def cast(node, keep=None):
         if isinstance(node, dict):
-            return {k: cast(v, keep_f32 or k in _F32_KEYS)
+            return {k: cast(v, keep or (torch.float32 if k in _F32_KEYS
+                                        else _KEEP.get(k)))
                     for k, v in node.items()}
         if isinstance(node, list):
-            return [cast(v, keep_f32) for v in node]
+            return [cast(v, keep) for v in node]
         t = node.to(device)
         if t.is_floating_point():
-            t = t.to(torch.float32 if keep_f32 else dtype)
+            t = t.to(keep or dtype)
         return t.contiguous()
 
     for stack, n in (("encoder", arch.encoder_layers),
@@ -144,7 +147,10 @@ def params_from_jax(tree_np: Mapping[str, Any], arch: WhisperArch,
     """The JAX package's parameter tree, read back to host numpy (e.g.
     ``jax.device_get``), -> port params. Dense [d_in, d_out] -> [d_out,
     d_in]; conv HIO [k, C_in, C_out] -> [C_out, C_in, k]; stacked [L, ...]
-    layer leaves -> one dict per layer."""
+    layer leaves -> one dict per layer. A quantized tree (models/quantize)
+    carries across as well: int8 ``w_q`` [L, d_in, d_out] -> [d_out, d_in],
+    bf16 ``w_scale`` [L, 1, d_out] -> [d_out], the fused ``self.qkv``
+    entry like any dense."""
     def conv_leaf(path: tuple, x: np.ndarray) -> torch.Tensor:
         a = np.asarray(x)
         if a.dtype.name == "bfloat16":            # ml_dtypes storage
@@ -153,8 +159,10 @@ def params_from_jax(tree_np: Mapping[str, Any], arch: WhisperArch,
             t = torch.from_numpy(np.array(a))
         if path[-1] == "w" and path[-2] in ("conv1", "conv2"):
             return t.permute(2, 1, 0)
-        if path[-1] == "w":
+        if path[-1] in ("w", "w_q"):
             return t.transpose(-1, -2)
+        if path[-1] == "w_scale":              # [L, 1, d_out] -> [L, d_out]
+            return t.squeeze(-2)
         return t
 
     def walk(node, path=()):

@@ -16,7 +16,9 @@ Parameter layout (models/loader.py builds it):
 
 The encoder's unmasked self-attention goes through ops/fused_attention.py
 (the CUDA kernel on CUDA tensors). The decoder step's attentions, MLPs and
-LM head are plain torch ops, as the reference leaves them to XLA.
+LM head are plain torch ops, as the reference leaves them to XLA; so is
+the quantized step (int8 weights, int8/int4 caches). The quantized
+serving step that runs all layers in one kernel is ops/decode_step.py.
 """
 
 from __future__ import annotations
@@ -48,7 +50,13 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """x @ wᵀ (+ b), weights [d_out, d_in]."""
+    """x @ wᵀ (+ b), weights [d_out, d_in]. The int8 layout of
+    models/quantize.py ({"w_q": int8 [d_out, d_in], "w_scale": bf16
+    [d_out]}) multiplies by the bf16 scale after the product, in x's
+    dtype, as the reference's dense does (whisper.py:64-67)."""
+    if "w_q" in p:
+        y = F.linear(x, p["w_q"].to(x.dtype)) * p["w_scale"].to(x.dtype)
+        return y + p["b"].to(y.dtype) if "b" in p else y
     return F.linear(x, p["w"], p.get("b"))
 
 
@@ -146,8 +154,11 @@ def encode(params: Params, arch: WhisperArch,
 
 
 # ---------------------------------------------------------------------------
-# Decoder with a float KV cache and alignment-head capture
+# Decoder with a float or quantized KV cache and alignment-head capture
 # ---------------------------------------------------------------------------
+
+INT8, INT4 = "int8", "int4"          # quantized cache kinds
+_QMAX = {INT8: 127.0, INT4: 7.0}
 
 
 @dataclass
@@ -156,20 +167,80 @@ class DecoderCache:
 
     self_k/self_v: [L, B, H, T_max, Dh] — head-dim-last, so the live
     prefix ``[..., :position + 1, :]`` is one strided slice and every
-    product reads contiguous 64-wide rows. cross_k/cross_v:
-    [L, B, H, K_enc, Dh], computed once from the encoder states."""
+    product reads contiguous rows. cross_k/cross_v: [L, B, H, K_enc, Dh],
+    computed once from the encoder states.
+
+    A quantized half (``init_cache(cross_dtype=..., self_dtype=...)``)
+    holds int8 values, or int4 values nibble-packed two Dh neighbours to
+    a byte (uint8 [..., Dh/2], the even index in the low nibble, each a
+    two's-complement nibble in [-7, 7]), with one bf16 scale per position
+    over Dh in ``*_scale`` [L, B, H, T]; the scales are None for a float
+    half. Torch has no int4 dtype, and one value per byte would cost what
+    int8 costs."""
     self_k: torch.Tensor
     self_v: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
+    cross_k_scale: torch.Tensor | None = None
+    cross_v_scale: torch.Tensor | None = None
+    self_k_scale: torch.Tensor | None = None
+    self_v_scale: torch.Tensor | None = None
+
+
+def _quantize(x: torch.Tensor, qmax: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric quantization over the last dim (whisper.py:277-284 of the
+    reference): int8 values from the f32 scale, rounded half-to-even, and
+    the scale rounded to bf16 for storage."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
+    return q, scale[..., 0].to(torch.bfloat16)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 [..., 2n] in [-7, 7] -> uint8 [..., n]: element 2i in the low
+    nibble, 2i + 1 in the high one."""
+    w = q.to(torch.int16)
+    return ((w[..., 0::2] & 0xF) | ((w[..., 1::2] & 0xF) << 4)) \
+        .to(torch.uint8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., n] -> int8 [..., 2n], inverse of ``pack_int4``."""
+    b = p.to(torch.int16)
+    lo = ((b & 0xF) ^ 8) - 8                 # sign-extend the nibbles
+    hi = ((b >> 4) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).flatten(-2).to(torch.int8)
+
+
+def cache_values(c: torch.Tensor) -> torch.Tensor:
+    """The integer values of a quantized cache slice (int8, unpacked)."""
+    return unpack_int4(c) if c.dtype == torch.uint8 else c
+
+
+def _store(q: torch.Tensor, kind: str) -> torch.Tensor:
+    return pack_int4(q) if kind == INT4 else q
+
+
+def _kind(c: torch.Tensor) -> str:
+    return INT4 if c.dtype == torch.uint8 else INT8
 
 
 @torch.inference_mode()
 def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
                dtype: torch.dtype | None = None,
-               cache_len: int | None = None) -> DecoderCache:
-    """Allocate the self-attention cache (cache_len positions, default
-    max_target_positions) and fill the cross-attention K/V."""
+               cache_len: int | None = None,
+               cross_dtype: str | None = None,
+               self_dtype: str | None = None) -> DecoderCache:
+    """Allocate the self-attention ring (cache_len positions, default
+    max_target_positions) and fill the cross-attention K/V.
+
+    cross_dtype ``INT8``/``INT4`` quantizes the cross K/V per position
+    over Dh (from the f32 projections); self_dtype likewise makes the
+    ring quantized: zeros with bf16 scales, each new column quantized as
+    a step writes it. None keeps a half in ``dtype`` (default: the
+    encoder states' dtype)."""
     dec = params["decoder"]
     b, k_len, _ = encoder_out.shape
     h, dh = arch.decoder_attention_heads, arch.head_dim
@@ -177,16 +248,40 @@ def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
     dtype = dtype or encoder_out.dtype
     cache_len = cache_len or arch.max_target_positions
     dev = encoder_out.device
-    cross_k = torch.empty((n_layers, b, h, k_len, dh), dtype=dtype,
-                          device=dev)
-    cross_v = torch.empty_like(cross_k)
+    for kind in (cross_dtype, self_dtype):
+        if kind not in (None, INT8, INT4):
+            raise ValueError(f"cache dtype {kind!r}: use None, "
+                             f"{INT8!r} or {INT4!r}")
+
+    def empty(kind, t):
+        if kind is None:
+            return torch.zeros((n_layers, b, h, t, dh), dtype=dtype,
+                               device=dev)
+        width = dh // 2 if kind == INT4 else dh
+        return torch.zeros((n_layers, b, h, t, width), device=dev,
+                           dtype=torch.uint8 if kind == INT4 else torch.int8)
+
+    def scales(kind, t):
+        return None if kind is None else torch.zeros(
+            (n_layers, b, h, t), dtype=torch.bfloat16, device=dev)
+
+    cross_k, cross_v = empty(cross_dtype, k_len), empty(cross_dtype, k_len)
+    cks, cvs = scales(cross_dtype, k_len), scales(cross_dtype, k_len)
     for li, lp in enumerate(dec["layers"]):
-        cross_k[li] = _split_heads(dense(encoder_out, lp["cross"]["k"]), h)
-        cross_v[li] = _split_heads(dense(encoder_out, lp["cross"]["v"]), h)
-    shape = (n_layers, b, h, cache_len, dh)
-    return DecoderCache(self_k=torch.zeros(shape, dtype=dtype, device=dev),
-                        self_v=torch.zeros(shape, dtype=dtype, device=dev),
-                        cross_k=cross_k, cross_v=cross_v)
+        for name, dst, sc in (("k", cross_k, cks), ("v", cross_v, cvs)):
+            x = _split_heads(dense(encoder_out, lp["cross"][name]), h)
+            if cross_dtype is None:
+                dst[li] = x
+            else:
+                q, s = _quantize(x.float(), _QMAX[cross_dtype])
+                dst[li] = _store(q, cross_dtype)
+                sc[li] = s
+    return DecoderCache(self_k=empty(self_dtype, cache_len),
+                        self_v=empty(self_dtype, cache_len),
+                        cross_k=cross_k, cross_v=cross_v,
+                        cross_k_scale=cks, cross_v_scale=cvs,
+                        self_k_scale=scales(self_dtype, cache_len),
+                        self_v_scale=scales(self_dtype, cache_len))
 
 
 def alignment_selector(arch: WhisperArch,
@@ -215,6 +310,53 @@ def _heads_by_layer(align_sel: np.ndarray | None,
     return out
 
 
+def _self_qkv(y: torch.Tensor, sp: Params, num_heads: int, scale: float
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Head-split (q, k, v) of y, q pre-scaled: one product through the
+    fused "qkv" entry when present (models/quantize.fuse_decoder_qkv,
+    whose q rows carry the scale), else three."""
+    if "qkv" in sp:
+        qkv = dense(y, sp["qkv"])
+        d = qkv.shape[-1] // 3
+        return (_split_heads(qkv[..., :d], num_heads),
+                _split_heads(qkv[..., d:2 * d], num_heads),
+                _split_heads(qkv[..., 2 * d:], num_heads))
+    return (_split_heads(dense(y, sp["q"]) * scale, num_heads),
+            _split_heads(dense(y, sp["k"]), num_heads),
+            _split_heads(dense(y, sp["v"]), num_heads))
+
+
+def quantized_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor,
+                        mask: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention over a quantized cache (the reference's
+    seq_last_attention with scales, whisper.py:466-491): q [B, H, S, Dh]
+    pre-scaled; k/v [B, H, T, Dh] int8 or packed int4; per-position bf16
+    scales [B, H, T] folded outside both products. Scores and softmax in
+    f32; the scaled probabilities round to q's dtype before P·V. Returns
+    (out in q's dtype, probs f32)."""
+    kv = cache_values(k).float()
+    s = torch.matmul(q.float(), kv.transpose(-1, -2)) \
+        * k_scale.float()[:, :, None, :]
+    if mask is not None:
+        s = s.masked_fill(~mask, -1e9)
+    p = torch.softmax(s, dim=-1)
+    pv = (p * v_scale.float()[:, :, None, :]).to(q.dtype)
+    out = torch.matmul(pv.float(), cache_values(v).float())
+    return out.to(q.dtype), p
+
+
+def _write_quantized(ring: torch.Tensor, scales: torch.Tensor, li: int,
+                     position: int, end: int, x: torch.Tensor) -> None:
+    """Quantize new K or V rows x [B, H, S, Dh] over Dh and write them at
+    ring slots [position, end) of layer li."""
+    kind = _kind(ring)
+    q, s = _quantize(x.float(), _QMAX[kind])
+    ring[li, :, :, position:end] = _store(q, kind)
+    scales[li, :, :, position:end] = s
+
+
 @torch.inference_mode()
 def decode_step_multi(params: Params, arch: WhisperArch,
                       tokens: torch.Tensor, position: int,
@@ -223,16 +365,20 @@ def decode_step_multi(params: Params, arch: WhisperArch,
                       ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
     """S-token incremental step (block prefill) at positions
     [position, position + S). Writes the S new K/V rows into the self
-    cache, attends causally over the live prefix only (the semantics of
-    the reference's staged_ring_quantum=0: its masked slots contribute
-    exact zeros) and captures the alignment heads' cross-attention.
+    cache (quantized per column over Dh when the ring is), attends
+    causally over the live prefix only (the semantics of the reference's
+    staged_ring_quantum=0: its masked slots contribute exact zeros) and
+    captures the alignment heads' cross-attention. Activations take the
+    ring's dtype, or the token embedding's when the ring is quantized.
 
     Returns (logits [B, S, vocab] f32, cache, align_probs [B, A, S, K]
     f32 — zeros when align_sel is None)."""
     dec = params["decoder"]
     h = arch.decoder_attention_heads
     b, s = tokens.shape
-    dtype = cache.self_k.dtype
+    self_quant = cache.self_k_scale is not None
+    cross_quant = cache.cross_k_scale is not None
+    dtype = dec["tok_emb"].dtype if self_quant else cache.self_k.dtype
     dev = tokens.device
     end = position + s
     if end > cache.self_k.shape[3]:
@@ -253,19 +399,32 @@ def decode_step_multi(params: Params, arch: WhisperArch,
 
     for li, lp in enumerate(dec["layers"]):
         y = layer_norm(x, lp["ln1"])
-        q = _split_heads(dense(y, lp["self"]["q"]) * scale, h)
-        cache.self_k[li, :, :, position:end] = _split_heads(
-            dense(y, lp["self"]["k"]), h)
-        cache.self_v[li, :, :, position:end] = _split_heads(
-            dense(y, lp["self"]["v"]), h)
-        out, _ = attention(q, cache.self_k[li, :, :, :end],
-                           cache.self_v[li, :, :, :end], mask)
+        q, k_new, v_new = _self_qkv(y, lp["self"], h, scale)
+        if self_quant:
+            _write_quantized(cache.self_k, cache.self_k_scale, li, position,
+                             end, k_new)
+            _write_quantized(cache.self_v, cache.self_v_scale, li, position,
+                             end, v_new)
+            out, _ = quantized_attention(
+                q, cache.self_k[li, :, :, :end], cache.self_v[li, :, :, :end],
+                cache.self_k_scale[li, :, :, :end],
+                cache.self_v_scale[li, :, :, :end], mask)
+        else:
+            cache.self_k[li, :, :, position:end] = k_new
+            cache.self_v[li, :, :, position:end] = v_new
+            out, _ = attention(q, cache.self_k[li, :, :, :end],
+                               cache.self_v[li, :, :, :end], mask)
         x = x + dense(_merge_heads(out), lp["self"]["o"])
 
         y = layer_norm(x, lp["ln2"])
         qc = _split_heads(dense(y, lp["cross"]["q"]) * scale, h)
-        out, probs = attention(qc, cache.cross_k[li], cache.cross_v[li])
-        x = x + dense(_merge_heads(out), lp["cross"]["o"])
+        if cross_quant:
+            out, probs = quantized_attention(
+                qc, cache.cross_k[li], cache.cross_v[li],
+                cache.cross_k_scale[li], cache.cross_v_scale[li])
+        else:
+            out, probs = attention(qc, cache.cross_k[li], cache.cross_v[li])
+        x = x + dense(_merge_heads(out.to(x.dtype)), lp["cross"]["o"])
         slots, src = heads[li]
         if slots:
             aligned[:, slots] = probs[:, src]

@@ -1,0 +1,406 @@
+"""Whole-step quantized decoder: one kernel per decode step, all layers.
+
+Port of crisperwhisper_tpu/ops/pallas_decode_b1.py for the two modes the
+greedy loop reaches: ``decode_step_b1`` (one stream) and
+``decode_step_rows`` (2-8 distinct streams at one shared position). Both
+run ``whole_step``, which launches ``csrc/decode_step.cu`` for CUDA
+tensors and runs ``whole_step_plain`` only for CPU tensors.
+
+The gated configuration (``supported``/``supported_rows``) is the
+reference's: fused-QKV int8 decoder weights (models/quantize.py), an int8
+self ring with bf16 per-position scales, an int8 or packed-int4 cross
+cache, a scalar position, no key mask, no beam grouping. On top of that
+the CUDA kernel's own shape limits (``_kernel_takes``) take the place of
+the reference's TPU-only ``_mosaic_aligned``: a shape the kernel does not
+take fails the gate, so greedy decoding takes models/whisper.decode_step
+as the reference's gate would; it never fails at the launch.
+
+Numerics of one step (the reference kernel's, pallas_decode_b1.py
+:162-556): an f32 residual stream from x0 = tok_emb[tok] + pos_emb[pos];
+LayerNorms in f32 with eps 1e-5; each dense as (x · W_int8) * scale +
+bias in f32, the cross-q scale and bias times head_dim**-0.5; the fresh
+K/V column quantized over Dh from the f32 scale, rounded half-to-even,
+its scale stored and used as bf16, written into the ring at ``position``
+before the self attention reads slots [0, position]; softmax in f32; P
+times the per-position V scale before P·V; exact erf GELU. The alignment
+capture takes each alignment head's cross probabilities, rounded to bf16
+only when ``align_dtype`` is bf16. The final LayerNorm and the tied LM
+head stay outside the kernel (``_lm_head``), as in the reference.
+
+The plain version and the JAX kernel are the same f32 algebra summed in
+other orders, so they agree to a few f32 ulps per op, and a fresh column
+may differ by one int8 step where a value falls near a rounding boundary
+(tests/test_torch_decode_step.py holds the bands).
+"""
+
+from __future__ import annotations
+
+import functools
+import weakref
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from crisperwhisper_tpu.config import WhisperArch
+
+from .. import _build
+from ..models.whisper import (DecoderCache, _quantize, cache_values,
+                              layer_norm)
+
+MAX_ROWS = 8                     # rows of one step (the reference's cap)
+THREADS = 512                    # block size of the CUDA kernel
+SMEM_LIMIT = 232448              # bytes of shared memory a block may use
+_HEAD_DIMS = (16, 32, 64)
+_W_NAMES = (("self", "qkv"), ("self", "o"), ("cross", "q"), ("cross", "o"),
+            ("mlp", "fc1"), ("mlp", "fc2"))
+
+
+# ---------------------------------------------------------------------------
+# Gates
+# ---------------------------------------------------------------------------
+
+
+def _smem_bytes(m: int, d: int, f: int, t_ring: int, k_enc: int) -> int:
+    """Dynamic shared memory of one kernel block: the GEMV input rows, or
+    the query, one score row and the P·V partial sums (a 64-wide row per
+    warp)."""
+    return 4 * max(m * max(d, f), 64 + max(t_ring, k_enc) + THREADS * 2)
+
+
+def _kernel_takes(arch: WhisperArch, cache: DecoderCache, m: int) -> bool:
+    """The CUDA kernel's shape limits: 16-byte weight rows, a head dim
+    its attention loops take, and shared memory within one block."""
+    return (arch.head_dim in _HEAD_DIMS
+            and arch.d_model == arch.decoder_attention_heads * arch.head_dim
+            and arch.d_model % 16 == 0 and arch.decoder_ffn_dim % 16 == 0
+            and _smem_bytes(m, arch.d_model, arch.decoder_ffn_dim,
+                            cache.self_k.shape[3], cache.cross_k.shape[3])
+            <= SMEM_LIMIT)
+
+
+def _scalar(position) -> bool:
+    return isinstance(position, int) or (
+        isinstance(position, torch.Tensor) and position.dim() == 0)
+
+
+def _quantized(params: Any, cache: DecoderCache) -> bool:
+    lay = params["decoder"]["layers"][0]
+    return ("qkv" in lay["self"] and "w_q" in lay["self"]["qkv"]
+            and "w_q" in lay["mlp"]["fc1"]
+            and cache.self_k_scale is not None
+            and cache.self_k.dtype == torch.int8
+            and cache.cross_k_scale is not None
+            and cache.cross_k.dtype in (torch.int8, torch.uint8))
+
+
+def supported(params: Any, arch: WhisperArch, cache: DecoderCache,
+              key_mask, beam_groups: int, position, tokens) -> bool:
+    """The batch-1 gate (pallas_decode_b1.py:710-726)."""
+    return (tokens.shape[0] == 1 and _scalar(position) and key_mask is None
+            and beam_groups == 1 and _quantized(params, cache)
+            and _kernel_takes(arch, cache, 1))
+
+
+def supported_rows(params: Any, arch: WhisperArch, cache: DecoderCache,
+                   key_mask, position, tokens) -> bool:
+    """The multi-stream gate (pallas_decode_b1.py:957-978): 2..8 distinct
+    streams, each with its own ring and cross cache."""
+    r = tokens.shape[0]
+    return (tokens.dim() == 1 and 1 < r <= MAX_ROWS and _scalar(position)
+            and key_mask is None and _quantized(params, cache)
+            and cache.self_k.shape[1] == r and cache.cross_k.shape[1] == r
+            and _kernel_takes(arch, cache, r))
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+
+
+def _ln(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """LayerNorm on the f32 residual (pallas_decode_b1.py:213-221)."""
+    mean = x.mean(-1, keepdim=True)
+    zc = x - mean
+    var = (zc * zc).mean(-1, keepdim=True)
+    return zc * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+
+
+def _gemv(y: torch.Tensor, p: dict, extra: float | None = None
+          ) -> torch.Tensor:
+    """(y · W_int8ᵀ) * scale + bias, all f32; ``extra`` multiplies both
+    scale and bias (the cross-q factor head_dim**-0.5)."""
+    acc = y @ p["w_q"].float().T
+    s = p["w_scale"].float()
+    b = p["b"].float() if "b" in p else torch.zeros_like(s)
+    if extra is not None:
+        s, b = s * extra, b * extra
+    return acc * s + b
+
+
+def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
+                     position: int, cache: DecoderCache,
+                     heads: tuple[tuple[int, int] | None, ...],
+                     align_bf16: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's algebra in plain PyTorch. x0 [M, d] f32 (row m is
+    stream m of the rings and cross caches); ``heads`` names the (layer,
+    head) of each alignment slot (None: no source). Writes each layer's
+    fresh K/V column into the ring at ``position`` in place and returns
+    (hid [M, d] f32 — the residual stream after the last layer,
+    align [M, A, K] f32)."""
+    m, d = x0.shape
+    h, dh = arch.decoder_attention_heads, arch.head_dim
+    live = position + 1
+    align = torch.zeros((m, len(heads), cache.cross_k.shape[3]),
+                        dtype=torch.float32, device=x0.device)
+    xr = x0.float()
+    for li, lp in enumerate(params["decoder"]["layers"]):
+        qkv = _gemv(_ln(xr, lp["ln1"]), lp["self"]["qkv"])
+        q, k, v = (qkv[:, i * d:(i + 1) * d].reshape(m, h, dh)
+                   for i in range(3))
+        for x, ring, scales in ((k, cache.self_k, cache.self_k_scale),
+                                (v, cache.self_v, cache.self_v_scale)):
+            qv, sc = _quantize(x, 127.0)
+            ring[li, :, :, position] = qv
+            scales[li, :, :, position] = sc
+        sk = torch.einsum("mhd,mhtd->mht", q,
+                          cache.self_k[li, :, :, :live].float()) \
+            * cache.self_k_scale[li, :, :, :live].float()
+        p = torch.softmax(sk, dim=-1) \
+            * cache.self_v_scale[li, :, :, :live].float()
+        out = torch.einsum("mht,mhtd->mhd", p,
+                           cache.self_v[li, :, :, :live].float())
+        xr = xr + _gemv(out.reshape(m, d), lp["self"]["o"])
+
+        qc = _gemv(_ln(xr, lp["ln2"]), lp["cross"]["q"],
+                   extra=dh ** -0.5).reshape(m, h, dh)
+        sk = torch.einsum("mhd,mhkd->mhk", qc,
+                          cache_values(cache.cross_k[li]).float()) \
+            * cache.cross_k_scale[li].float()
+        p = torch.softmax(sk, dim=-1)
+        for a, src in enumerate(heads):
+            if src is not None and src[0] == li:
+                row = p[:, src[1]]
+                align[:, a] = (row.to(torch.bfloat16).float() if align_bf16
+                               else row)
+        pv = p * cache.cross_v_scale[li].float()
+        out = torch.einsum("mhk,mhkd->mhd", pv,
+                           cache_values(cache.cross_v[li]).float())
+        xr = xr + _gemv(out.reshape(m, d), lp["cross"]["o"])
+
+        hmid = F.gelu(_gemv(_ln(xr, lp["ln3"]), lp["mlp"]["fc1"]))
+        xr = xr + _gemv(hmid, lp["mlp"]["fc2"])
+    return xr, align
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _Operands:
+    """Per-parameter-tree operands of the kernel, built once: the int8
+    weight pointers [L * 6] (qkv, o, cross q, cross o, fc1, fc2) and one
+    f32 row per layer of scales, biases and LayerNorm parameters."""
+    ptrs: torch.Tensor
+    vec: torch.Tensor
+    owner: weakref.ref
+
+
+_OPERANDS: dict[int, _Operands] = {}
+
+
+def _vec_row(lp: dict) -> torch.Tensor:
+    """One layer's f32 vector table in the kernel's order (decode_step.cu
+    ``Vec``): qkv s/b, o s/b, cross q s/b, cross o s/b, fc2 s/b, ln1-3
+    scale/bias (d wide each but qkv's 3d), then fc1 s/b (f wide)."""
+    def sb(p):
+        s = p["w_scale"].float()
+        return [s, p["b"].float() if "b" in p else torch.zeros_like(s)]
+    parts = (sb(lp["self"]["qkv"]) + sb(lp["self"]["o"])
+             + sb(lp["cross"]["q"]) + sb(lp["cross"]["o"])
+             + sb(lp["mlp"]["fc2"])
+             + [lp[n][k].float() for n in ("ln1", "ln2", "ln3")
+                for k in ("scale", "bias")]
+             + sb(lp["mlp"]["fc1"]))
+    return torch.cat(parts)
+
+
+def _operands(params: Any, arch: WhisperArch, device) -> _Operands:
+    layers = params["decoder"]["layers"]
+    owner = layers[0]["self"]["qkv"]["w_q"]
+    key = id(owner)
+    ops = _OPERANDS.get(key)
+    if ops is not None and ops.owner() is owner:
+        return ops
+    d, f = arch.d_model, arch.decoder_ffn_dim
+    shapes = ((3 * d, d), (d, d), (d, d), (d, d), (f, d), (d, f))
+    ptrs = []
+    for lp in layers:
+        for (group, name), shape in zip(_W_NAMES, shapes):
+            w = lp[group][name]["w_q"]
+            if (w.dtype != torch.int8 or tuple(w.shape) != shape
+                    or not w.is_contiguous() or w.device != device):
+                raise ValueError(f"whole_step: {group}.{name} weights must "
+                                 f"be contiguous int8 {list(shape)} on "
+                                 f"{device}")
+            ptrs.append(w.data_ptr())
+    vec = torch.stack([_vec_row(lp) for lp in layers]).to(device)
+    for k in [k for k, v in _OPERANDS.items() if v.owner() is None]:
+        del _OPERANDS[k]
+    ops = _Operands(ptrs=torch.tensor(ptrs, dtype=torch.int64,
+                                      device=device),
+                    vec=vec.contiguous(), owner=weakref.ref(owner))
+    _OPERANDS[key] = ops
+    return ops
+
+
+@functools.lru_cache(maxsize=16)
+def _align_table(heads: tuple, device: str) -> torch.Tensor:
+    flat = [x for src in heads for x in (src if src is not None
+                                         else (-1, -1))]
+    return torch.tensor(flat, dtype=torch.int32, device=device)
+
+
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
+           shape: tuple, device) -> None:
+    if (x.device != device or x.dtype != dtype or tuple(x.shape) != shape
+            or not x.is_contiguous()):
+        raise ValueError(f"whole_step: {name} must be a contiguous "
+                         f"{dtype} {list(shape)} tensor on {device}, got "
+                         f"{x.dtype} {list(x.shape)} on {x.device}"
+                         f"{'' if x.is_contiguous() else ' (strided)'}")
+
+
+def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
+               position: int, cache: DecoderCache,
+               heads: tuple[tuple[int, int] | None, ...],
+               align_bf16: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``whole_step_plain``'s contract. CUDA tensors launch the kernel
+    (csrc/decode_step.cu) once; CPU tensors take the plain version."""
+    if x0.device.type == "cpu":
+        return whole_step_plain(params, arch, x0, position, cache, heads,
+                                align_bf16)
+    if x0.device.type != "cuda":
+        raise ValueError(f"whole_step: unsupported device {x0.device}")
+    dev = x0.device
+    n_layers, h, dh = (arch.decoder_layers, arch.decoder_attention_heads,
+                       arch.head_dim)
+    d, f = arch.d_model, arch.decoder_ffn_dim
+    m = x0.shape[0]
+    t_ring, k_enc = cache.self_k.shape[3], cache.cross_k.shape[3]
+    cross_int4 = cache.cross_k.dtype == torch.uint8
+    if not 1 <= m <= MAX_ROWS or not _kernel_takes(arch, cache, m):
+        raise ValueError(f"whole_step: unsupported shape (rows {m}, head "
+                         f"dim {dh}, d {d}, ffn {f})")
+    if not 0 <= position < t_ring:
+        raise ValueError(f"whole_step: position {position} outside the "
+                         f"ring of {t_ring}")
+    _check("x0", x0, torch.float32, (m, d), dev)
+    ring = (n_layers, m, h, t_ring)
+    cross = (n_layers, m, h, k_enc)
+    for name in ("self_k", "self_v"):
+        _check(name, getattr(cache, name), torch.int8, ring + (dh,), dev)
+    for name in ("self_k_scale", "self_v_scale"):
+        _check(name, getattr(cache, name), torch.bfloat16, ring, dev)
+    for name in ("cross_k", "cross_v"):
+        _check(name, getattr(cache, name),
+               torch.uint8 if cross_int4 else torch.int8,
+               cross + (dh // 2 if cross_int4 else dh,), dev)
+    for name in ("cross_k_scale", "cross_v_scale"):
+        _check(name, getattr(cache, name), torch.bfloat16, cross, dev)
+    ops = _operands(params, arch, dev)
+    table = _align_table(tuple(heads), str(dev))
+    hid = x0.clone()
+    align = torch.zeros((m, len(heads), k_enc), dtype=torch.float32,
+                        device=dev)
+    scratch = torch.empty((m * (5 * d + f),), dtype=torch.float32,
+                          device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _build.kernels().lib.cw_decode_step(
+            ops.ptrs.data_ptr(), ops.vec.data_ptr(), hid.data_ptr(),
+            scratch.data_ptr(), cache.self_k.data_ptr(),
+            cache.self_v.data_ptr(), cache.self_k_scale.data_ptr(),
+            cache.self_v_scale.data_ptr(), cache.cross_k.data_ptr(),
+            cache.cross_v.data_ptr(), cache.cross_k_scale.data_ptr(),
+            cache.cross_v_scale.data_ptr(), table.data_ptr(),
+            align.data_ptr(), m, n_layers, d, f, h, dh, t_ring, position,
+            k_enc, len(heads), int(cross_int4), int(align_bf16),
+            dh ** -0.5, stream)
+    _build.check(err, "whole_step")
+    whole_step.launches += 1
+    return hid, align
+
+
+whole_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The step functions (the reference's signatures and return shapes)
+# ---------------------------------------------------------------------------
+
+
+def _heads(align_sel: np.ndarray | None) -> tuple:
+    """The (layer, head) source of each alignment slot of a one-hot
+    [L, H, A] selector; one empty slot without a selector."""
+    if align_sel is None:
+        return (None,)
+    sel = np.asarray(align_sel)
+    out = []
+    for a in range(sel.shape[-1]):
+        src = np.argwhere(sel[:, :, a] != 0)
+        out.append((int(src[0, 0]), int(src[0, 1])) if len(src) else None)
+    return tuple(out)
+
+
+def _lm_head(dec: dict, hid: torch.Tensor) -> torch.Tensor:
+    """Final LN on hid rounded to the activation dtype, then the tied LM
+    head in f32 (pallas_decode_b1.py:827-834): [M, d] -> [M, V]."""
+    x = layer_norm(hid.to(dec["tok_emb"].dtype), dec["ln"])
+    return torch.matmul(x.float(), dec["tok_emb"].float().T)
+
+
+def _step(params, arch, tokens, position, cache, align_sel, align_dtype):
+    dec = params["decoder"]
+    position = int(position)
+    x0 = (dec["tok_emb"][tokens].float()
+          + dec["pos_emb"][position][None].float())              # [M, d]
+    hid, align = whole_step(params, arch, x0, position, cache,
+                            _heads(align_sel),
+                            align_bf16=align_dtype == torch.bfloat16)
+    return _lm_head(dec, hid), cache, align
+
+
+@torch.inference_mode()
+def decode_step_b1(params: Any, arch: WhisperArch, tokens: torch.Tensor,
+                   position: int, cache: DecoderCache,
+                   align_sel: np.ndarray | None = None,
+                   align_dtype: torch.dtype = torch.float32
+                   ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
+    """models/whisper.decode_step at batch 1 in the gated configuration
+    (``supported``). The ring takes the fresh column in place. Returns
+    (logits [1, V] f32, cache, align_probs [1, A, K] f32)."""
+    return _step(params, arch, tokens, position, cache, align_sel,
+                 align_dtype)
+
+
+@torch.inference_mode()
+def decode_step_rows(params: Any, arch: WhisperArch, tokens: torch.Tensor,
+                     position: int, cache: DecoderCache,
+                     align_sel: np.ndarray | None = None,
+                     align_dtype: torch.dtype = torch.float32
+                     ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
+    """``decode_step_b1`` under the rows gate (``supported_rows``): 2..8
+    distinct streams at one position, per-row rings and cross caches; the
+    kernel takes the row count as M. Both modes share ``_step`` (calling
+    ``decode_step_b1`` would count a rows step as a b1 step wherever the
+    modes are counted). Returns (logits [R, V] f32, cache, align_probs
+    [R, A, K] f32)."""
+    return _step(params, arch, tokens, position, cache, align_sel,
+                 align_dtype)

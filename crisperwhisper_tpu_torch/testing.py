@@ -37,6 +37,25 @@ CHUNK_S = 5                 # the TINY model's window (250 source positions)
 TS_BAND = 0.02              # one DTW frame: the two sides sum in other orders
 ATTN_F32_BAND = 2e-5        # the reference kernel's f32 band
 PREP_BAND = 1e-5            # the reference align-prep kernel's band
+# The decode-step kernel against its plain version: both are the same f32
+# algebra summed in other orders, over up to 32 layers, and a fresh K/V
+# column may round one int8 step apart where a value sits near a rounding
+# boundary. Measured on an H100 with random decoder biases and LayerNorms
+# at large-v3 width, up to 4 rows, hid stays within 1.2e-5 of its largest
+# magnitude and the alignment probabilities within 3.5e-6; the bands are
+# 3-4x the worst of those and 10x or more of chip_smoke.py's cases. A
+# kernel that used the f32 scale of the fresh column instead of its bf16
+# rounding lands above them, at position 0 by 185x (the fresh column is
+# then the only live slot). Logits go through the serving head,
+# which rounds hid to the activation dtype: with bf16 activations two
+# hids a few f32 ulps apart may round to neighbouring bf16 values, so the
+# logits band is at least one epsilon of that dtype of the largest logit
+# (as attention_error's bf16 band). Values placed exactly on the ties of
+# the int8 rounding (``tie_params``) must come out half-to-even, exactly.
+STEP_REL_BAND = 5e-5
+STEP_ALIGN_BAND = 1e-5
+STEP_COLUMN_BAND = 1        # int8 steps
+TIE_UNIT = 1.0 / 16         # the f32 (and bf16) scale of a tie column
 
 TINY = dict(
     vocab_size=1000, d_model=64, encoder_layers=2, decoder_layers=2,
@@ -123,6 +142,13 @@ def _base36(n: int) -> str:
             return out
 
 
+def large_v3_align_heads(arch: WhisperArch) -> list[tuple[int, int]]:
+    """The (layer, head) alignment heads of the large-v3 configs."""
+    return [((2 + 2 * i) % arch.decoder_layers,
+             i % arch.decoder_attention_heads)
+            for i in range(LARGE_V3_ALIGN_HEADS)]
+
+
 def write_large_v3_configs(path: str, arch: WhisperArch | None = None) -> str:
     """A large-v3 checkpoint directory without weights: every id below eot
     decodes to a space-led word, so host post-processing of random-weight
@@ -145,9 +171,7 @@ def write_large_v3_configs(path: str, arch: WhisperArch | None = None) -> str:
     _write_json(os.path.join(path, "config.json"),
                 {**arch.to_hf_config(), "median_filter_width": 7})
     _write_json(os.path.join(path, "generation_config.json"), {
-        "alignment_heads": [[(2 + 2 * i) % arch.decoder_layers,
-                             i % arch.decoder_attention_heads]
-                            for i in range(LARGE_V3_ALIGN_HEADS)],
+        "alignment_heads": [list(h) for h in large_v3_align_heads(arch)],
         "max_initial_timestamp_index": 50,
         "no_timestamps_token_id": sp.no_timestamps,
         "eos_token_id": sp.eot,
@@ -241,23 +265,197 @@ def dtw_error(cost: torch.Tensor, n_tokens: torch.Tensor,
                .item())
 
 
+def random_affine(tree, seed: int):
+    """``tree`` (a parameter tree of tensors or of numpy arrays) with every
+    decoder bias drawn from N(0, 0.02), every decoder LayerNorm gain from
+    1 + N(0, 0.1) and shift from N(0, 0.1), each in its leaf's dtype and
+    device. init_params leaves them at 0 and 1, where a kernel that
+    dropped a bias or read the wrong row of its vector table would still
+    agree with its plain version."""
+    rng = np.random.default_rng(seed)
+    draws = {"b": (0.0, 0.02), "bias": (0.0, 0.1), "scale": (1.0, 0.1)}
+
+    def draw(x, mean, std):
+        v = (rng.standard_normal(tuple(x.shape)) * std + mean).astype(
+            np.float32)
+        if isinstance(x, torch.Tensor):
+            return torch.from_numpy(v).to(device=x.device, dtype=x.dtype)
+        return v.astype(x.dtype)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, key) for v in node]
+        return draw(node, *draws[key]) if key in draws else node
+    return {**tree, "decoder": walk(tree["decoder"])}
+
+
+def quantized_decoder(params, arch: WhisperArch, seed: int = 1):
+    """``params`` with random decoder biases and LayerNorms
+    (``random_affine``), then the decoder fused and quantized as
+    ``load_pipeline(quantize=...)`` does."""
+    from .models.quantize import fuse_decoder_qkv, quantize_decoder_weights
+    return quantize_decoder_weights(
+        fuse_decoder_qkv(random_affine(params, seed), arch.head_dim))
+
+
+def tie_params(params, arch: WhisperArch):
+    """Quantized ``params`` whose layer 0 puts every fresh K and V value on
+    a tie of the int8 rounding: the K/V rows of its fused QKV weights are
+    zero and their biases TIE_UNIT times ±127 then ±0.5, ±1.5, ... ±7.5
+    in each head. The f32 scale is then exactly TIE_UNIT (as is its bf16
+    rounding) and every other value divides to k + 0.5, where rounding
+    half-to-even and half away from zero differ."""
+    d, dh = arch.d_model, arch.head_dim
+    i = np.arange(dh)
+    head = np.where(i % 2 == 0, 1.0, -1.0) * ((i - 1) % 8 + 0.5)
+    ties = []
+    for top in (127.0, -127.0):                       # K, then V
+        head[0] = top
+        ties.append(np.tile(head, d // dh))
+    dec = params["decoder"]
+    qkv = dec["layers"][0]["self"]["qkv"]
+    w_q, b = qkv["w_q"].clone(), qkv["b"].clone()
+    w_q[d:] = 0
+    b[d:] = torch.from_numpy(np.concatenate(ties) * TIE_UNIT).to(b)
+    lay0 = {**dec["layers"][0],
+            "self": {**dec["layers"][0]["self"],
+                     "qkv": {**qkv, "w_q": w_q, "b": b}}}
+    return {**params, "decoder": {**dec,
+                                  "layers": [lay0, *dec["layers"][1:]]}}
+
+
+def tie_column_error(params, arch: WhisperArch, x0: torch.Tensor,
+                     position: int, cache, plain: bool = False) -> int:
+    """Largest distance, in int8 steps, of layer 0's fresh K/V columns
+    from the half-to-even rounding of ``tie_params``'s values (0 is the
+    exact match it must give; a bf16 scale other than TIE_UNIT counts as
+    128). Runs ``whole_step`` (its plain version with ``plain``) on a
+    clone of ``cache``."""
+    from .ops.decode_step import whole_step, whole_step_plain
+    tp = tie_params(params, arch)
+    work = clone_cache(cache)
+    (whole_step_plain if plain else whole_step)(tp, arch, x0, position,
+                                                work, (None,))
+    d = arch.d_model
+    b = tp["decoder"]["layers"][0]["self"]["qkv"]["b"].float().cpu()
+    err = 0
+    for i, name in enumerate(("self_k", "self_v")):
+        want = torch.round(b[(i + 1) * d:(i + 2) * d] / TIE_UNIT)
+        got = getattr(work, name)[0, :, :, position].float().cpu()
+        err = max(err, int((got.reshape(got.shape[0], d) - want)
+                           .abs().max()))
+        scale = getattr(work, name + "_scale")[0, :, :, position].float()
+        if not bool((scale == TIE_UNIT).all()):
+            err = max(err, 128)
+    return err
+
+
+def random_step_cache(arch: WhisperArch, rows: int, cross: str,
+                      ring: int, position: int, gen: torch.Generator,
+                      k_enc: int | None = None):
+    """A serving cache with random content: an int8 ring filled below
+    ``position`` (zeros from there), an int8 or packed-int4 cross cache,
+    bf16 scales about what quantized N(0, 1) projections give."""
+    from .models.whisper import DecoderCache, pack_int4
+    dev = gen.device
+    n, h, dh = arch.decoder_layers, arch.decoder_attention_heads, \
+        arch.head_dim
+    k_enc = k_enc or arch.max_source_positions
+
+    def ints(shape, qmax):
+        return torch.randint(-qmax, qmax + 1, shape, generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    def scales(shape, qmax):
+        return ((torch.rand(shape, generator=gen, device=dev) + 1.0)
+                * (2.0 / qmax)).to(torch.bfloat16)
+
+    def ring_half():
+        x = ints((n, rows, h, ring, dh), 127)
+        x[:, :, :, position:] = 0
+        return x
+
+    def ring_scales():
+        x = scales((n, rows, h, ring), 127)
+        x[:, :, :, position:] = 0
+        return x
+
+    qmax = 7 if cross == "int4" else 127
+
+    def cross_half():
+        x = ints((n, rows, h, k_enc, dh), qmax)
+        return pack_int4(x) if cross == "int4" else x
+    return DecoderCache(
+        self_k=ring_half(), self_v=ring_half(),
+        cross_k=cross_half(), cross_v=cross_half(),
+        cross_k_scale=scales((n, rows, h, k_enc), qmax),
+        cross_v_scale=scales((n, rows, h, k_enc), qmax),
+        self_k_scale=ring_scales(), self_v_scale=ring_scales())
+
+
+def clone_cache(cache):
+    from dataclasses import fields, replace
+    return replace(cache, **{f.name: getattr(cache, f.name).clone()
+                             for f in fields(cache)
+                             if getattr(cache, f.name) is not None})
+
+
+def decode_step_errors(params, arch: WhisperArch, x0: torch.Tensor,
+                       position: int, cache, heads) -> dict:
+    """The decode-step kernel (``whole_step``) against ``whole_step_plain``
+    on clones of one cache: {name: (max error, band)} for hid, the logits
+    of the serving head (``_lm_head``) on each, align and the fresh ring
+    columns (in int8 steps)."""
+    from .ops.decode_step import _lm_head, whole_step, whole_step_plain
+    kc, pc = clone_cache(cache), clone_cache(cache)
+    hid, align = whole_step(params, arch, x0, position, kc, heads)
+    rhid, ralign = whole_step_plain(params, arch, x0, position, pc, heads)
+    dec = params["decoder"]
+    logits, rlogits = _lm_head(dec, hid), _lm_head(dec, rhid)
+    cols = max(int((getattr(kc, n)[:, :, :, position].int()
+                    - getattr(pc, n)[:, :, :, position].int())
+                   .abs().max()) for n in ("self_k", "self_v"))
+    rel = STEP_REL_BAND
+    head_rel = max(rel, torch.finfo(dec["tok_emb"].dtype).eps)
+    return {
+        "hid": ((hid - rhid).abs().max().item(),
+                rel * rhid.abs().max().item()),
+        "logits": ((logits - rlogits).abs().max().item(),
+                   head_rel * rlogits.abs().max().item()),
+        "align": ((align - ralign).abs().max().item(), STEP_ALIGN_BAND),
+        "columns": (cols, STEP_COLUMN_BAND)}
+
+
 # ---------------------------------------------------------------------------
 # The TINY slice on two devices
 # ---------------------------------------------------------------------------
 
 
-def tiny_slice(ckpt: str, params, device: str, audio: np.ndarray
+def tiny_slice(ckpt: str, params, device: str, audio: np.ndarray,
+               quantize: bool | str = False
                ) -> tuple[dict, list[np.ndarray]]:
     """The TINY f32 slice on ``device``: the pipeline's result for
     ``audio`` (word timestamps, adjust_pauses 0.12), and each 5 s chunk's
-    tokens."""
+    tokens. ``quantize="serving"`` also turns on the whole-step decode
+    kernel (``b1_decode_kernel``) with 24 new tokens per window, on
+    ``params`` with random decoder biases and LayerNorms
+    (``random_affine``, seed 1)."""
+    from dataclasses import replace
     from .config import PipelineOptions
     from .hub import load_pipeline
     from .pipeline.asr import chunk_iter
     po = PipelineOptions(chunk_length_s=CHUNK_S, batch_size=16,
                          return_timestamps="word")
+    if quantize == "serving":
+        params = random_affine(params, 1)
     pipe = load_pipeline(ckpt, dtype=torch.float32, device=device,
-                         params=to_device(params, device), pipe_opts=po)
+                         params=to_device(params, device), pipe_opts=po,
+                         quantize=quantize)
+    if quantize == "serving":
+        pipe.gen_opts = replace(pipe.gen_opts, b1_decode_kernel=True,
+                                max_new_tokens=24)
     res = pipe({"raw": audio, "sampling_rate": SR}, return_timestamps="word",
                adjust_pauses_threshold=0.12)
     stride = round(CHUNK_S / 6 * SR)

@@ -1,5 +1,6 @@
 """PyTorch port on the card: each kernel against its plain version, and
-the TINY slice on CUDA against the same slice on the CPU.
+the TINY slice (plain and quantized serving) on CUDA against the same
+slice on the CPU.
 
 The comparisons and their bands are crisperwhisper_tpu_torch.testing's,
 which chip_smoke.py runs too. Every test carries the ``gpu`` marker and
@@ -109,4 +110,82 @@ def test_tiny_slice_on_card_matches_cpu(gen, tmp_path):
     before = fused_attention.launches
     gpu = testing.tiny_slice(ckpt, params, "cuda", audio)
     assert fused_attention.launches > before and len(gpu[0]["chunks"]) > 0
+    assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND
+
+
+@pytest.fixture(scope="module")
+def tiny_quant(gen):
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    arch = WhisperArch(**testing.TINY)
+    params = init_params(arch, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    return arch, testing.quantized_decoder(params, arch)
+
+
+@pytest.mark.parametrize("rows,cross,position", [
+    (1, "int8", 0), (1, "int4", 30), (3, "int4", 17), (4, "int8", 95),
+    (8, "int4", 5)])
+def test_decode_step_kernel_matches_plain(gen, tiny_quant, rows, cross,
+                                          position):
+    """Both modes (one row, 2-8 rows), int8 and int4 cross caches: hid,
+    logits, alignment and fresh columns within testing's bands, one
+    launch per call."""
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, rows, cross, 96, position, gen)
+    x0 = torch.randn((rows, arch.d_model), generator=gen, device="cuda")
+    before = whole_step.launches
+    errs = testing.decode_step_errors(params, arch, x0, position, cache,
+                                      ((0, 1), (1, 3), (0, 2)))
+    assert whole_step.launches == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+
+
+@pytest.mark.parametrize("rows,cross,position", [
+    (1, "int8", 0), (3, "int4", 17), (8, "int8", 95)])
+def test_decode_step_kernel_rounds_ties_half_to_even(gen, tiny_quant, rows,
+                                                      cross, position):
+    """Fresh K/V values placed exactly on the int8 rounding's ties come
+    out half-to-even with the exact scale (testing.tie_params)."""
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, rows, cross, 96, position, gen)
+    x0 = torch.randn((rows, arch.d_model), generator=gen, device="cuda")
+    assert testing.tie_column_error(params, arch, x0, position, cache) == 0
+
+
+def test_decode_step_kernel_rejects_what_it_does_not_take(gen, tiny_quant):
+    from dataclasses import replace
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, 1, "int8", 32, 3, gen)
+    x0 = torch.zeros((1, arch.d_model), device="cuda")
+    strided = replace(cache, self_k=cache.self_k.transpose(3, 4)
+                      .contiguous().transpose(3, 4))
+    with pytest.raises(ValueError):
+        whole_step(params, arch, x0, 3, strided, (None,))   # strided ring
+    wide = replace(arch, d_model=512)                       # head dim 128
+    with pytest.raises(ValueError):
+        whole_step(params, wide, torch.zeros((1, 512), device="cuda"), 3,
+                   cache, (None,))
+    with pytest.raises(ValueError):
+        whole_step(params, arch, x0, 32, cache, (None,))    # past the ring
+
+
+@pytest.mark.parametrize("seconds", [5.0, 12.0])
+def test_tiny_serving_slice_on_card_matches_cpu(gen, tmp_path, seconds):
+    """quantize="serving" with the whole-step kernel: one window (the b1
+    mode) and four (the rows mode) give the CPU's tokens and words."""
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    params = init_params(WhisperArch(**testing.TINY),
+                         torch.Generator().manual_seed(0))
+    audio = testing.tone_audio(seconds, 0)
+    cpu = testing.tiny_slice(ckpt, params, "cpu", audio, "serving")
+    before = whole_step.launches
+    gpu = testing.tiny_slice(ckpt, params, "cuda", audio, "serving")
+    assert whole_step.launches > before
     assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND

@@ -178,7 +178,6 @@ def test_cli_json_adjust_pauses(tiny, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], 10), (["--quantize", "serving"], 10),
     (["--num-beams", "4"], 11), (["--prompt", "hello"], 12),
     (["--assistant", "prompt_lookup"], 13)])
 def test_cli_rejects_unported_flags(tiny, capsys, flags, item):
@@ -189,8 +188,7 @@ def test_cli_rejects_unported_flags(tiny, capsys, flags, item):
 
 @pytest.mark.parametrize("change", [
     {"num_beams": 2}, {"prompt_ids": (904, 5)},
-    {"condition_on_prev_tokens": True}, {"kv_cache_int8": True},
-    {"self_kv_cache_int4": True}, {"prompt_lookup": True}])
+    {"condition_on_prev_tokens": True}, {"prompt_lookup": True}])
 def test_unported_options_raise(tiny, change):
     from crisperwhisper_tpu_torch.decoding.longform import generate
     tp = tiny["torch"]
@@ -200,8 +198,7 @@ def test_unported_options_raise(tiny, change):
                  replace(tp.gen_opts, **change), feats)
 
 
-@pytest.mark.parametrize("kw", [{"quantize": True}, {"quantize": "serving"},
-                                {"assistant": "prompt_lookup"}])
+@pytest.mark.parametrize("kw", [{"assistant": "prompt_lookup"}])
 def test_load_pipeline_rejects_unported(tiny, kw):
     from crisperwhisper_tpu_torch.hub import load_pipeline
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
