@@ -18,11 +18,23 @@ Phases, one line each on stdout:
      int8 cross caches and four rows with int4, timed beside the
      quantized non-kernel decode_step; then one row at position 0 (the
      fresh column alone in the ring), untimed; in each case also fresh
-     columns placed on the int8 rounding's ties;
+     columns placed on the int8 rounding's ties; the verify-block (multi)
+     mode at M = 5 with the same checks, timed beside the b1 mode, and
+     at M = 1, where it must equal the b1 mode bit for bit; the
+     ring-write kernel at large-v3 width, batch 16, 5 columns a row, for
+     bf16, int8 (with scales) and packed int4 rings, bit-identical to its
+     plain version, timed per call and, replayed from a CUDA graph, on
+     the device alone. Each timed kernel also prints its bound (the bytes
+     it must move over 3.35 TB/s, or its operations over the peak rate
+     of their type, whichever is larger) and the time of the one PyTorch
+     call that computes the same function, where there is one;
   3. the TINY f32 slice on the card against the same slice on the CPU
      (plain versions), same seeded weights: tokens equal, word
      timestamps within 0.02 s; then the quantized serving slice with the
-     decode-step kernel, one window (batch 1) and four (rows);
+     decode-step kernel, one window (batch 1) and four (rows); then the
+     speculative slice (prompt lookup over four windows: the ring-write
+     kernel; self:1 on one serving window: the verify-block kernel),
+     equal to the CPU and to greedy on the card;
   4. the full large-v3 geometry with random bf16 weights built on the
      card: load_pipeline answers a 60 s WAV file and a 12 s array with
      word timestamps and adjust_pauses=0.12; every kernel's launch count
@@ -31,9 +43,20 @@ Phases, one line each on stdout:
      b1_decode_kernel: the 12 s array (batch 1, decode_step_b1) and the
      60 s WAV (3 windows, decode_step_rows), counts reset before each
      request; each must launch the decode-step kernel in its own mode and
-     the other three kernels.
+     the other three kernels;
+  6. speculative decoding at large-v3 geometry: (a) the default path with
+     assistant="prompt_lookup" on the 60 s WAV (3 windows at per-row
+     positions: the ring-write kernel), (b) quantize="serving" with
+     b1_decode_kernel and prompt lookup on the 12 s array (batch 1: the
+     verify-block kernel), (c) as (b) with assistant="self:4" (the draft
+     chain on the b1 kernel). Each request runs greedy first, then
+     speculatively with every count reset just before and read just
+     after; it prints both walls, the acceptance rate, the token agreement
+     with greedy (at least 0.9, the reference's band) and the launches by
+     kernel and mode.
 Then a JSON line with one entry per kernel (launches: phase 4 for the
-first three, phase 5 for the decode step), and as the last line
+first three, phases 5 and 6 for the decode step, phase 6 (a) for the
+ring write), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Exits non-zero, without that last line, when no CUDA card is present, when
@@ -77,6 +100,72 @@ def _time_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call: ``iters`` calls captured in one
+    CUDA graph and replayed, so the host's cost per call drops out."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
+PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}   # tensor cores; CUDA cores
+
+
+def _bound(n_bytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """(least ms the card needs for this work, what binds it): the bytes
+    over the memory rate, or the operations over the peak rate of their
+    type, whichever takes longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_MS
+    t_ops = ops / PEAK_OPS_PER_MS[kind]
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _step_work(params, arch, cache, position: int, m: int, multi: bool,
+               n_align: int) -> tuple[float, float]:
+    """(bytes, f32 operations) of one whole decoder step over M rows: every
+    int8 weight and f32 vector row once, the cross caches and scales, the
+    live ring prefix read and the fresh columns written, x0 in, hid and
+    alignment rows out; two operations per weight and row, and per
+    attended key and value element."""
+    lay = params["decoder"]["layers"]
+    weights = sum(_nbytes(lp[g][n]["w_q"]) for lp in lay
+                  for g, n in (("self", "qkv"), ("self", "o"),
+                               ("cross", "q"), ("cross", "o"),
+                               ("mlp", "fc1"), ("mlp", "fc2")))
+    d, f = arch.d_model, arch.decoder_ffn_dim
+    vec = len(lay) * (20 * d + 2 * f) * 4
+    cross = _nbytes(cache.cross_k, cache.cross_v, cache.cross_k_scale,
+                    cache.cross_v_scale)
+    n_new = m if multi else 1
+    live = position + n_new
+    slots = cache.self_k.shape[0] * cache.self_k.shape[1] \
+        * cache.self_k.shape[2]                  # L x streams x H
+    ring = 2 * slots * (live * (arch.head_dim + 2) + n_new * (
+        arch.head_dim + 2))
+    io = 2 * m * d * 4 + m * n_align * cache.cross_k.shape[3] * 4
+    ops = 2 * weights * m + 4 * arch.decoder_layers * m * d * (
+        live + cache.cross_k.shape[3])
+    return weights + vec + cross + ring + io, ops
 
 
 def phase0_device() -> str:
@@ -131,6 +220,7 @@ def phase2_kernels(large) -> list[dict]:
     from crisperwhisper_tpu_torch.ops import dtw as dt
     from crisperwhisper_tpu_torch.ops import fused_attention as fa
 
+    import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
@@ -155,11 +245,18 @@ def phase2_kernels(large) -> list[dict]:
                     f"(band {band:.3g}) {ms:.3f} ms vs plain "
                     f"{plain_ms:.3f} ms")
         if len(entries) == 0:           # the main path's case (bf16)
+            bound, by = _bound(_nbytes(q, k, v, q),
+                               4 * q.numel() * shape[2], "bf16")
+            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=1.0), 10)
+            rows[-1] += (f", bound {bound:.4f} ms ({by}), "
+                         f"scaled_dot_product_attention {lib_ms:.3f} ms")
             entries.append({
                 "name": "encoder_attention", "route": "cuda",
                 "source": "crisperwhisper_tpu_torch/csrc/encoder_attention.cu",
                 "replaces": "crisperwhisper_tpu/ops/fused_attention.py:37",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     print("phase 2 attention: " + "; ".join(rows), flush=True)
 
     # --- kernel 2: alignment prep, one row cropped to 1000 frames
@@ -174,14 +271,19 @@ def phase2_kernels(large) -> list[dict]:
     plain_ms = _time_ms(lambda: ap.align_prep_plain(w, nt, nf, 7), 3)
     _require(err <= testing.PREP_BAND,
              f"align_prep: max err {err} > {testing.PREP_BAND}")
+    # z-norm, a 7-tap median (a sorting network) and the head mean: about
+    # 20 f32 operations per input value
+    bound, by = _bound(_nbytes(w, nt, nf, got), 20 * w.numel(), "f32")
     print(f"phase 2 align_prep: {[b, a, t, m]} err {err:.3g} (band "
-          f"{testing.PREP_BAND}) {ms:.3f} ms vs plain {plain_ms:.3f} ms",
+          f"{testing.PREP_BAND}) {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({by}), no single library call",
           flush=True)
     entries.append({
         "name": "align_prep", "route": "triton",
         "source": "crisperwhisper_tpu_torch/ops/_align_prep_triton.py",
         "replaces": "crisperwhisper_tpu/ops/pallas_align.py:44",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None})
 
     # --- kernel 3: DTW, exact, on the masked cost of that prep
     cost = torch.where(testing.live_cells(nt, nf, t, m), got,
@@ -190,13 +292,20 @@ def phase2_kernels(large) -> list[dict]:
     ms = _time_ms(lambda: dt.dtw(cost, nt, nf), 10)
     plain_ms = _time_ms(lambda: al.dtw_jump_times(cost, nt, nf), 2)
     _require(err == 0, f"dtw: off by up to {err} frames")
+    # the live cells of this run's rows, read once; the DP does about four
+    # f32 operations a cell; the path out is one int32 a token
+    cells = int((nt.long() * nf.long()).sum())
+    bound, by = _bound(4 * cells + _nbytes(nt, nf) + 4 * b * t, 4 * cells,
+                       "f32")
     print(f"phase 2 dtw: {[b, t, m]} exact (max diff {err} frames) "
-          f"{ms:.3f} ms vs plain {plain_ms:.3f} ms", flush=True)
+          f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({by}), no single library call", flush=True)
     entries.append({
         "name": "dtw", "route": "cuda",
         "source": "crisperwhisper_tpu_torch/csrc/dtw.cu",
         "replaces": "crisperwhisper_tpu/ops/pallas_dtw.py:59",
-        "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms})
+        "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None})
 
     # --- kernel 4: the whole-step decoder at large-v3 width
     from crisperwhisper_tpu_torch.models.whisper import (alignment_selector,
@@ -237,16 +346,94 @@ def phase2_kernels(large) -> list[dict]:
             qparams, arch, x0, pos, work, tuple(heads)), 3)
         step_ms = _time_ms(lambda: decode_step(qparams, arch, tok, pos, work,
                                                align_sel=sel), 3)
+        bound, by = _bound(*_step_work(qparams, arch, cache, pos, rows,
+                                       False, len(heads)), "f32")
         print(line + f"; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-              f"quantized decode_step {step_ms:.3f} ms", flush=True)
+              f"quantized decode_step {step_ms:.3f} ms, bound "
+              f"{bound:.4f} ms ({by})", flush=True)
         if len(entries) == 3:           # the batch-1 serving case
+            b1_ms = ms
             entries.append({
                 "name": "decode_step", "route": "cuda",
                 "source": "crisperwhisper_tpu_torch/csrc/decode_step.cu",
                 "replaces": "crisperwhisper_tpu/ops/pallas_decode_b1.py:162",
                 "max_abs_err": errs["hid"][0], "ms": ms,
-                "plain_ms": plain_ms})
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None})
     del work, cache
+
+    # --- the verify-block (multi) mode: 5 tokens of one stream at 60
+    cache = testing.random_step_cache(arch, 1, "int4", 128, 60, gen)
+    tok = torch.randint(0, arch.vocab_size, (5,), generator=gen, device=dev)
+    x0 = (dec["tok_emb"][tok].float()
+          + dec["pos_emb"][60:65].float()).contiguous()
+    errs = testing.decode_step_errors(qparams, arch, x0, 60, cache,
+                                      tuple(heads), multi=True)
+    errs["ties"] = (testing.tie_column_error(qparams, arch, x0, 60, cache,
+                                             multi=True), 0)
+    for name, (err, band) in errs.items():
+        _require(err <= band, f"decode step multi M=5: {name} max err "
+                              f"{err} > {band}")
+    work = testing.clone_cache(cache)
+    ms = _time_ms(lambda: ds.whole_step(qparams, arch, x0, 60, work,
+                                        tuple(heads), multi=True), 20)
+    plain_ms = _time_ms(lambda: ds.whole_step_plain(
+        qparams, arch, x0, 60, work, tuple(heads), multi=True), 3)
+    bound, by = _bound(*_step_work(qparams, arch, cache, 60, 5, True,
+                                   len(heads)), "f32")
+    print("phase 2 decode_step multi: M=5 int4 cross, ring 128 at 60: "
+          + ", ".join(f"{k} err {e:.3g} (band {b:.3g})"
+                      for k, (e, b) in errs.items())
+          + f"; kernel {ms:.3f} ms (b1 {b1_ms:.3f} ms) vs plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    # one row: the multi mode runs the b1 arithmetic, bit for bit
+    one = x0[:1].contiguous()
+    a, c = testing.clone_cache(cache), testing.clone_cache(cache)
+    hid1, al1 = ds.whole_step(qparams, arch, one, 60, a, tuple(heads))
+    hidm, alm = ds.whole_step(qparams, arch, one, 60, c, tuple(heads),
+                              multi=True)
+    same = (torch.equal(hid1, hidm) and torch.equal(al1, alm)
+            and all(torch.equal(getattr(a, n), getattr(c, n))
+                    for n in ("self_k", "self_v", "self_k_scale",
+                              "self_v_scale")))
+    _require(same, "decode step multi at M=1 differs from the b1 mode")
+    print("phase 2 decode_step multi: M=1 equals the b1 mode bit for bit",
+          flush=True)
+    del work, cache, a, c
+
+    # --- kernel 6: the per-row ring writes of a verify block, batch 16
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    rows = []
+    ring = 448 + 5                      # max_target_positions + spec_len
+    for kind in ("bf16", "int8", "int4"):
+        pairs, pos = testing.ring_write_inputs(arch, 16, 5, ring, kind, gen)
+        err = testing.ring_write_error(pairs, 7, pos)
+        _require(err == 0, f"ring_write {kind}: {err} bytes differ")
+        ms = _time_ms(lambda: rw.write_block_columns_group(pairs, 7, pos),
+                      200)
+        device_ms = _graph_ms(
+            lambda: rw.write_block_columns_group(pairs, 7, pos), 200)
+        pos_h = pos.cpu()
+        plain_ms = _time_ms(lambda: rw.write_block_columns_plain(
+            pairs, 7, pos_h), 20)
+        lib_ms = _time_ms(lambda: testing.ring_write_library(pairs, 7, pos),
+                          200)
+        bound, by = _bound(2 * _nbytes(*(blk for _, blk in pairs)), 0.0,
+                           "f32")
+        rows.append(f"{kind} bit-identical, {ms:.4f} ms a call "
+                    f"({device_ms:.4f} ms on the device, from a CUDA graph) "
+                    f"vs plain {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} "
+                    f"ms, bound {bound:.5f} ms ({by})")
+        if kind == "bf16":              # the default path's ring
+            entries.append({
+                "name": "ring_write", "route": "cuda",
+                "source": "crisperwhisper_tpu_torch/csrc/ring_write.cu",
+                "replaces": "crisperwhisper_tpu/ops/ring_scatter.py:116",
+                "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+        del pairs
+    print("phase 2 ring_write: large-v3 [32, 16, 20, 453] rings, 5 columns "
+          "a row: " + "; ".join(rows), flush=True)
     return entries
 
 
@@ -294,6 +481,35 @@ def phase3_tiny(tmp: str) -> None:
               f"{launched} decode-step launches, max timestamp diff "
               f"{gap:.4f} s", flush=True)
 
+    # speculative decoding: equal to greedy on the card and to the CPU
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    for seconds, quantize, assistant in ((12.0, False, "prompt_lookup"),
+                                         (5.0, "serving", "self:1")):
+        clip = testing.tone_audio(seconds, 0)
+        cpu = testing.tiny_slice(ckpt, params, "cpu", clip, quantize,
+                                 assistant)
+        greedy = testing.tiny_slice(ckpt, params, "cuda", clip, quantize)
+        before = (rw.write_block_columns_group.launches,
+                  ds.whole_step.mode_launches["multi"])
+        gpu = testing.tiny_slice(ckpt, params, "cuda", clip, quantize,
+                                 assistant)
+        launched = (rw.write_block_columns_group.launches - before[0],
+                    ds.whole_step.mode_launches["multi"] - before[1])
+        _require(launched[1 if quantize else 0] > 0,
+                 f"tiny speculative {assistant}: its kernel did not launch")
+        try:
+            gap = max(testing.slice_timestamp_gap(cpu, gpu),
+                      testing.slice_timestamp_gap(greedy, gpu))
+        except AssertionError as e:
+            raise SmokeError(f"tiny speculative {assistant}: {e}") from e
+        _require(gap <= testing.TS_BAND,
+                 f"tiny speculative {assistant}: timestamps differ by {gap}")
+        print(f"phase 3 ok: tiny speculative slice ({assistant}, "
+              f"{'serving' if quantize else 'f32'}, {seconds:.0f} s), CUDA "
+              f"== CPU == greedy on CUDA, ring-write launches "
+              f"{launched[0]}, decode-step multi launches {launched[1]}, "
+              f"max timestamp diff {gap:.4f} s", flush=True)
+
 
 def _check_results(requests, results) -> None:
     """Non-empty text, word chunks with finite timestamps inside the clip,
@@ -339,9 +555,6 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
     from crisperwhisper_tpu_torch.hub import load_pipeline
     from crisperwhisper_tpu_torch.models.whisper import (decode_step, encode,
                                                          init_cache)
-    from crisperwhisper_tpu_torch.ops import align_prep as ap
-    from crisperwhisper_tpu_torch.ops import dtw as dt
-    from crisperwhisper_tpu_torch.ops import fused_attention as fa
 
     arch, params = large
     pipe = load_pipeline(_large_ckpt(tmp, arch), params=params, device="cuda",
@@ -354,8 +567,7 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for wrapper in (fa.fused_attention, ap.align_prep, dt.dtw):
-        wrapper.launches = 0
+    _reset_counts()
     results, walls = [], []
     for req, _ in requests:
         t0 = time.perf_counter()
@@ -363,9 +575,8 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
                             adjust_pauses_threshold=0.12))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = {"encoder_attention": fa.fused_attention.launches,
-                "align_prep": ap.align_prep.launches,
-                "dtw": dt.dtw.launches}
+    launches = {k: n for k, n in _counts().items()
+                if k in ("encoder_attention", "align_prep", "dtw")}
     peak = torch.cuda.max_memory_allocated()
 
     _check_results(requests, results)
@@ -393,15 +604,39 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
     return launches
 
 
+def _reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from crisperwhisper_tpu_torch.ops import align_prep as ap
+    from crisperwhisper_tpu_torch.ops import decode_step as ds
+    from crisperwhisper_tpu_torch.ops import dtw as dt
+    from crisperwhisper_tpu_torch.ops import fused_attention as fa
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    for wrapper in (fa.fused_attention, ap.align_prep, dt.dtw, ds.whole_step,
+                    rw.write_block_columns_group):
+        wrapper.launches = 0
+    ds.whole_step.mode_launches = dict.fromkeys(ds.MODES, 0)
+
+
+def _counts() -> dict[str, int]:
+    """Launches by kernel, the decode step also by mode."""
+    from crisperwhisper_tpu_torch.ops import align_prep as ap
+    from crisperwhisper_tpu_torch.ops import decode_step as ds
+    from crisperwhisper_tpu_torch.ops import dtw as dt
+    from crisperwhisper_tpu_torch.ops import fused_attention as fa
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    return {"encoder_attention": fa.fused_attention.launches,
+            "align_prep": ap.align_prep.launches, "dtw": dt.dtw.launches,
+            "decode_step": ds.whole_step.launches,
+            **{f"decode_step_{m}": n
+               for m, n in ds.whole_step.mode_launches.items()},
+            "ring_write": rw.write_block_columns_group.launches}
+
+
 def phase5_serving(tmp: str, large) -> int:
     """Quantized serving with the whole-step decode kernel. Returns the
     decode-step kernel's launches over both requests."""
     import torch
     from crisperwhisper_tpu_torch.hub import load_pipeline
-    from crisperwhisper_tpu_torch.ops import align_prep as ap
-    from crisperwhisper_tpu_torch.ops import decode_step as ds
-    from crisperwhisper_tpu_torch.ops import dtw as dt
-    from crisperwhisper_tpu_torch.ops import fused_attention as fa
 
     arch, params = large
     pipe = load_pipeline(_large_ckpt(tmp, arch), params=params, device="cuda",
@@ -410,55 +645,118 @@ def phase5_serving(tmp: str, large) -> int:
                             temperatures=(0.0,), max_new_tokens=96,
                             force_unique_generate_call=True)
     wav, arr = _large_requests(tmp)
-    requests = [(arr, "decode_step_b1"), (wav, "decode_step_rows")]
-    modes = {"decode_step_b1": 0, "decode_step_rows": 0}
-    originals = {name: getattr(ds, name) for name in modes}
-
-    def counted(name):
-        def step(*a, **kw):
-            modes[name] += 1
-            return originals[name](*a, **kw)
-        return step
-
     total, lines = 0, []
-    try:
-        for name in modes:
-            setattr(ds, name, counted(name))
-        for (req, dur), mode in requests:
-            for wrapper in (fa.fused_attention, ap.align_prep, dt.dtw,
-                            ds.whole_step):
-                wrapper.launches = 0
-            for name in modes:
-                modes[name] = 0
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            res = pipe(req, return_timestamps="word",
-                       adjust_pauses_threshold=0.12)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {"encoder_attention": fa.fused_attention.launches,
-                        "align_prep": ap.align_prep.launches,
-                        "dtw": dt.dtw.launches,
-                        "decode_step": ds.whole_step.launches}
-            _check_results([(req, dur)], [res])
-            for name, n in launches.items():
-                _require(n > 0, f"serving {dur:.0f} s request: kernel {name} "
-                                "was not launched")
-            _require(modes[mode] > 0 and sum(modes.values()) == modes[mode],
-                     f"serving {dur:.0f} s request: steps by mode {modes}, "
-                     f"expected {mode} only")
-            total += launches["decode_step"]
-            lines.append(f"{dur:.0f} s {mode}: {wall:.2f} s wall "
-                         f"({len(res['chunks'])} words), peak device memory "
-                         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
-                         f"GiB, launches {launches}")
-    finally:
-        for name, fn in originals.items():
-            setattr(ds, name, fn)
+    for (req, dur), mode in ((arr, "b1"), (wav, "rows")):
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = pipe(req, return_timestamps="word",
+                   adjust_pauses_threshold=0.12)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        _check_results([(req, dur)], [res])
+        for name in ("encoder_attention", "align_prep", "dtw", "decode_step"):
+            _require(launches[name] > 0, f"serving {dur:.0f} s request: "
+                                         f"kernel {name} was not launched")
+        _require(launches["decode_step"] == launches[f"decode_step_{mode}"],
+                 f"serving {dur:.0f} s request: steps by mode {launches}, "
+                 f"expected {mode} only")
+        total += launches["decode_step"]
+        lines.append(f"{dur:.0f} s decode_step_{mode}: {wall:.2f} s wall "
+                     f"({len(res['chunks'])} words), peak device memory "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                     f"GiB, launches {launches}")
     print("phase 5 ok: large-v3 quantize='serving', b1_decode_kernel; "
           + "; ".join(lines), flush=True)
     return total
+
+
+def _agreement(ref: list, got: list) -> float:
+    """Token agreement of two runs' chunk tokens over the shorter of the
+    two streams (the reference's measure, tests/test_b1_kernel.py:94)."""
+    import numpy as np
+    r = np.concatenate([np.asarray(t).reshape(-1) for t in ref])
+    g = np.concatenate([np.asarray(t).reshape(-1) for t in got])
+    n = min(len(r), len(g))
+    return float((r[:n] == g[:n]).mean()) if n else 0.0
+
+
+def phase6_speculative(tmp: str, large) -> dict[str, int]:
+    """Speculative decoding at large-v3 geometry, three requests, each
+    after a greedy run of the same request. Returns the launches of the
+    speculative runs: ring_write of (a), decode_step of (b) and (c)."""
+    import torch
+    from crisperwhisper_tpu_torch.decoding import assisted
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+
+    arch, params = large
+    wav, arr = _large_requests(tmp)
+    cases = (("a", False, "prompt_lookup", wav, ("ring_write",)),
+             ("b", "serving", "prompt_lookup", arr, ("decode_step_multi",)),
+             ("c", "serving", "self:4", arr,
+              ("decode_step_multi", "decode_step_b1")))
+    real = assisted.assisted_decode
+    totals = {"ring_write": 0, "decode_step": 0}
+    lines = []
+    try:
+        for label, quantize, assistant, (req, dur), needs in cases:
+            pipe = load_pipeline(_large_ckpt(tmp, arch), params=params,
+                                 device="cuda", language="en",
+                                 quantize=quantize, assistant=assistant)
+            pipe.gen_opts = replace(pipe.gen_opts, temperatures=(0.0,),
+                                    max_new_tokens=96,
+                                    force_unique_generate_call=True,
+                                    b1_decode_kernel=bool(quantize))
+            spec = pipe.assistant
+            runs = {}
+            for name in ("greedy", "assisted"):
+                pipe.assistant = spec if name == "assisted" else None
+                counts: dict = {}
+                assisted.assisted_decode = (
+                    lambda *a, _c=counts, **kw: real(*a, counts=_c, **kw))
+                toks = []
+                inner = pipe._run_chunks
+
+                def spy(*a, _inner=inner, _toks=toks, **kw):
+                    out = _inner(*a, **kw)
+                    _toks.extend(o["tokens"] for o in out)
+                    return out
+                pipe._run_chunks = spy
+                _reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = pipe(req, return_timestamps="word",
+                           adjust_pauses_threshold=0.12)
+                torch.cuda.synchronize()
+                runs[name] = (time.perf_counter() - t0, toks, _counts(),
+                              counts, res)
+                del pipe._run_chunks
+            wall, toks, launches, counts, res = runs["assisted"]
+            _check_results([(req, dur)], [res])
+            for name in ("encoder_attention", "align_prep", "dtw", *needs):
+                _require(launches[name] > 0,
+                         f"speculative ({label}) {assistant}: kernel "
+                         f"{name} was not launched")
+            agree = _agreement(runs["greedy"][1], toks)
+            _require(agree >= 0.9, f"speculative ({label}) {assistant}: "
+                                   f"token agreement with greedy {agree}")
+            rate = counts.get("accepted", 0) / max(counts.get("drafts", 0), 1)
+            totals["ring_write"] += launches["ring_write"] \
+                if label == "a" else 0
+            totals["decode_step"] += launches["decode_step"]
+            lines.append(
+                f"({label}) {'serving' if quantize else 'bf16'} {assistant} "
+                f"{dur:.0f} s: {wall:.2f} s wall (greedy "
+                f"{runs['greedy'][0]:.2f} s), {counts.get('blocks', 0)} "
+                f"verify blocks, acceptance {rate:.3f}, agreement with "
+                f"greedy {agree:.3f}, launches {launches}")
+    finally:
+        assisted.assisted_decode = real
+    print("phase 6 ok: large-v3 speculative decoding; " + "; ".join(lines),
+          flush=True)
+    return totals
 
 
 def _large_params():
@@ -488,7 +786,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        phase0_device()
+        card = phase0_device()
         phase1_build()
         large = _large_params()
         entries = phase2_kernels(large)
@@ -496,17 +794,24 @@ def main() -> int:
             phase3_tiny(tmp)
             launches = phase4_large(tmp, large)
             launches["decode_step"] = phase5_serving(tmp, large)
-        _require("jax" not in sys.modules, "jax was imported")
+            spec = phase6_speculative(tmp, large)
+        launches["decode_step"] += spec["decode_step"]
+        launches["ring_write"] = spec["ring_write"]
+        _require(not any(m.split(".")[0] in ("jax", "crisperwhisper_tpu")
+                         for m in sys.modules),
+                 "jax or the JAX package was imported")
     except Exception as e:  # every phase failure ends the run non-zero
         import traceback
         traceback.print_exc()
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [{k: (launches[e["name"]] if k == "launches" else e[k])
                 for k in keys} for e in entries]
     print(json.dumps({"kernels": kernels}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

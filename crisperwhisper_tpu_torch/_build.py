@@ -34,7 +34,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("encoder_attention.cu", "dtw.cu", "decode_step.cu")
+SOURCES = ("encoder_attention.cu", "dtw.cu", "decode_step.cu",
+           "ring_write.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -114,9 +115,12 @@ def kernels() -> Kernels:
     lib.cw_encoder_attention.restype = i32
     lib.cw_dtw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cw_dtw.restype = i32
-    lib.cw_decode_step.argtypes = [ptr] * 14 + [i32] * 12 + [
+    lib.cw_decode_step.argtypes = [ptr] * 14 + [i32] * 13 + [
         ctypes.c_float, ptr]
     lib.cw_decode_step.restype = i32
+    lib.cw_ring_write.argtypes = [ptr] * 8 + [i32] * 9 + [ptr] + [i32] * 5 \
+        + [ptr]
+    lib.cw_ring_write.restype = i32
     lib.cw_error_string.argtypes = [i32]
     lib.cw_error_string.restype = ctypes.c_char_p
     return Kernels(lib=lib, path=path, build_seconds=seconds, ptxas_log=log)

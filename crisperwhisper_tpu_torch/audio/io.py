@@ -1,8 +1,7 @@
 # Verbatim copy of crisperwhisper_tpu/audio/io.py: the functions are
-# unchanged, only imports of shared modules point at
-# crisperwhisper_tpu. The original sits behind a package __init__ that
-# imports jax; this copy goes once that __init__ exports lazily
-# (ROADMAP queue 1, item 16).
+# unchanged, only the imports point at the port's own modules. The port
+# imports nothing of the JAX package; tests/test_torch_pipeline.py pins
+# this copy to the original.
 """Audio ingestion: WAV reader, ffmpeg subprocess contract, resampling.
 
 Replaces the reference's L0 audio ingestion (hf pipelines/audio_utils.py

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from crisperwhisper_tpu.config import FeatureConfig
+from ..config import FeatureConfig
 
 
 def hertz_to_mel_slaney(freq):

@@ -3,13 +3,17 @@
 Usage:
     python -m crisperwhisper_tpu_torch.cli --f audio.wav --model /path/ckpt \\
         [--language en] [--batch-size 16] [--chunk-length-s 30] \\
-        [--timestamps word] [--adjust-pauses 0.12] [--json]
+        [--timestamps word] [--adjust-pauses 0.12] [--json] \\
+        [--quantize none|int8|serving] [--assistant prompt_lookup|self:K] \\
+        [--device cuda|cpu]
 
-The flags are those of crisperwhisper_tpu.cli. The model runs on CUDA
-when a card is present, else on the CPU. ``--quantize int8|serving`` loads
-the quantized decoder (hub.load_pipeline's ``quantize``). Options outside
-the port's slice (--num-beams > 1, --assistant, --prompt) stop with a
-message and exit code 1.
+The flags are those of crisperwhisper_tpu.cli, and ``--device``: the model
+runs on the CUDA card unless ``--device cpu`` asks for the CPU (the
+counterpart of the reference's JAX_PLATFORMS). ``--quantize`` loads the
+quantized decoder and ``--assistant`` decodes speculatively (the
+``quantize`` and ``assistant`` of hub.load_pipeline). Options outside the
+port's slice (--num-beams > 1, --prompt) stop with a message and exit
+code 1.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ import sys
 _UNPORTED = {
     "--num-beams": (lambda a: a.num_beams > 1, 11),
     "--prompt": (lambda a: a.prompt is not None, 12),
-    "--assistant": (lambda a: a.assistant is not None, 13),
 }
 
 
@@ -50,7 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", type=str, default=None,
                    help="Domain-vocabulary bias text (not ported yet)")
     p.add_argument("--assistant", type=str, default=None, metavar="MODE",
-                   help="Speculative decoding (not ported yet)")
+                   help="Speculative decoding: 'prompt_lookup' or "
+                        "'self:K' (layer-truncated self-draft)")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"],
+                   help="Where the model runs (default: the CUDA card)")
     p.add_argument("--json", action="store_true",
                    help="Print the full result dict as JSON")
     return p
@@ -67,15 +74,16 @@ def main(argv=None) -> int:
         print(f"Error: The file '{args.f}' does not exist.")
         return 1
     try:
-        from crisperwhisper_tpu.config import PipelineOptions
+        from .config import PipelineOptions
 
         from .hub import load_pipeline
 
         rt = {"word": "word", "segment": True, "none": False}[args.timestamps]
         pipe = load_pipeline(
-            args.model, language=args.language,
+            args.model, language=args.language, device=args.device,
             quantize={"none": False, "int8": True,
                       "serving": "serving"}[args.quantize],
+            assistant=args.assistant,
             pipe_opts=PipelineOptions(chunk_length_s=args.chunk_length_s,
                                       batch_size=args.batch_size,
                                       return_timestamps=rt))

@@ -1,10 +1,10 @@
 // One quantized decoder step over all layers in one cooperative launch.
 //
 // Replaces the TPU kernel crisperwhisper_tpu/ops/pallas_decode_b1.py
-// (_kernel, reached from decode_step_b1 and decode_step_rows through
-// _run_kernel and _call_kernel). That kernel walked a (layer, phase) grid in
-// order on one TPU core, streamed each int8 weight tile through VMEM and
-// carried the residual stream in VMEM scratch.
+// (_kernel, reached from decode_step_b1, decode_step_b1_multi and
+// decode_step_rows through _run_kernel and _call_kernel). That kernel walked
+// a (layer, phase) grid in order on one TPU core, streamed each int8 weight
+// tile through VMEM and carried the residual stream in VMEM scratch.
 //
 // What bounds it on the H100: the weight stream. At large-v3 a step reads
 // 32 x (3d + 3d + f + f) x d = 32 x 22.9 MB = 734 MB of int8 weights, plus
@@ -34,6 +34,16 @@
 // outputs an f32 scratch.
 // The fresh column is written into the ring by the block that then reads
 // it, after a block barrier, so no other block touches that slot.
+//
+// Modes: the M rows are M distinct streams at one position, each with its
+// own ring and cross cache (M = 1: decode_step_b1, M = 2..8: rows), or, with
+// `multi`, M consecutive tokens of ONE stream at positions pos .. pos+M-1
+// (the speculative verify block, decode_step_b1_multi), sharing one ring
+// and one cross cache. Row i then attends to slots [0, pos + i], so it needs
+// the fresh columns of rows j < i of the same head: one block per head takes
+// all M rows, writes their M columns at [pos, pos + M) and, after a block
+// barrier, runs the M attention rows one after another. At M = 1 the multi
+// mode runs exactly the b1 mode's arithmetic.
 //
 // Numerics are the reference kernel's: f32 everywhere, the dense epilogue
 // acc * scale + bias with bf16 scales read as f32, the cross-q scale and
@@ -67,18 +77,20 @@ struct Step {
   float* att;              // [M, d] attention output (o-proj input)
   float* qc;               // [M, d] cross queries
   float* hmid;             // [M, f] GELU(fc1)
-  int8_t* ring_k;          // [L, M, H, T, Dh]
+  int8_t* ring_k;          // [L, R, H, T, Dh], R streams (1 in multi mode)
   int8_t* ring_v;
-  __nv_bfloat16* ring_ks;  // [L, M, H, T]
+  __nv_bfloat16* ring_ks;  // [L, R, H, T]
   __nv_bfloat16* ring_vs;
-  const uint8_t* cross_k;  // [L, M, H, K, Dh] int8 or [.., Dh/2] int4 pairs
+  const uint8_t* cross_k;  // [L, R, H, K, Dh] int8 or [.., Dh/2] int4 pairs
   const uint8_t* cross_v;
-  const __nv_bfloat16* cross_ks;  // [L, M, H, K]
+  const __nv_bfloat16* cross_ks;  // [L, R, H, K]
   const __nv_bfloat16* cross_vs;
   const int* align_lh;     // [A, 2] (layer, head) per alignment slot
   float* align;            // [M, A, K], zeroed by the caller
   int n_layers, d, f, h, dh, t_ring, pos, k_enc, n_align, cross_int4,
       align_bf16;
+  int multi;               // 1: the M rows are consecutive tokens of one
+                           // stream (shared ring and cross cache)
   float qscale;            // head_dim**-0.5
 };
 
@@ -301,47 +313,57 @@ __device__ void pv_product(const float* pv, const uint8_t* v, int n, int dh,
   __syncthreads();
 }
 
-// Phases 2-3: per (row, head), the fresh K/V column into the ring at `pos`,
-// then attention over ring slots [0, pos].
+// Phases 2-3: per (stream, head), the fresh K/V columns into the ring (M
+// of them at [pos, pos + M) in the multi mode, else one at pos), then, for
+// each row i of the stream, attention over ring slots [0, pos + i].
 template <int M>
 __device__ void self_attention(const Step& s, int layer, float* smem,
                                float* red) {
   const int H = s.h, dh = s.dh, T = s.t_ring, pos = s.pos, d = s.d;
+  const int streams = s.multi ? 1 : M;
+  const int n_new = s.multi ? M : 1;   // rows (fresh columns) a stream
   float* q = smem;                  // dh
   float* sc = smem + 64;            // T scores
   float* part = sc + (T > s.k_enc ? T : s.k_enc);
-  for (int item = blockIdx.x; item < M * H; item += gridDim.x) {
-    const int m = item / H, hh = item % H;
-    const size_t base = ((size_t)layer * M + m) * H + hh;
+  for (int item = blockIdx.x; item < streams * H; item += gridDim.x) {
+    const int st = item / H, hh = item % H;
+    const size_t base = ((size_t)layer * streams + st) * H + hh;
     int8_t* rk = s.ring_k + base * T * dh;
     int8_t* rv = s.ring_v + base * T * dh;
     __nv_bfloat16* rks = s.ring_ks + base * T;
     __nv_bfloat16* rvs = s.ring_vs + base * T;
-    const float* qkv = s.qkv + (size_t)m * 3 * d + hh * dh;
-    for (int kv = 1; kv <= 2; ++kv) {
-      const float x = threadIdx.x < dh ? qkv[kv * d + threadIdx.x] : 0.f;
-      const float amax = block_reduce(fabsf(x), red, true);
-      const float scale = fmaxf(amax, 1e-8f) / 127.f;
-      if (threadIdx.x < dh) {
-        const float qv = fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
-        (kv == 1 ? rk : rv)[(size_t)pos * dh + threadIdx.x] = (int8_t)qv;
+    for (int i = 0; i < n_new; ++i) {
+      const float* qkv = s.qkv + (size_t)(st + i) * 3 * d + hh * dh;
+      const int slot = pos + i;
+      for (int kv = 1; kv <= 2; ++kv) {
+        const float x = threadIdx.x < dh ? qkv[kv * d + threadIdx.x] : 0.f;
+        const float amax = block_reduce(fabsf(x), red, true);
+        const float scale = fmaxf(amax, 1e-8f) / 127.f;
+        if (threadIdx.x < dh) {
+          const float qv = fminf(fmaxf(rintf(x / scale), -127.f), 127.f);
+          (kv == 1 ? rk : rv)[(size_t)slot * dh + threadIdx.x] = (int8_t)qv;
+        }
+        if (threadIdx.x == 0)
+          (kv == 1 ? rks : rvs)[slot] = __float2bfloat16_rn(scale);
       }
-      if (threadIdx.x == 0)
-        (kv == 1 ? rks : rvs)[pos] = __float2bfloat16_rn(scale);
     }
-    if (threadIdx.x < dh) q[threadIdx.x] = qkv[threadIdx.x];
-    __syncthreads();
-    for (int t = threadIdx.x; t <= pos; t += kThreads)
-      sc[t] = dot_row(reinterpret_cast<const uint8_t*>(rk) + (size_t)t * dh,
-                      q, dh, false) *
-              __bfloat162float(rks[t]);
-    __syncthreads();
-    softmax_row(sc, pos + 1, red);
-    for (int t = threadIdx.x; t <= pos; t += kThreads)
-      sc[t] *= __bfloat162float(rvs[t]);
-    __syncthreads();
-    pv_product(sc, reinterpret_cast<const uint8_t*>(rv), pos + 1, dh, dh,
-               false, part, s.att + (size_t)m * d + hh * dh);
+    for (int i = 0; i < n_new; ++i) {
+      const int m = st + i, last = pos + i;
+      if (threadIdx.x < dh)
+        q[threadIdx.x] = s.qkv[(size_t)m * 3 * d + hh * dh + threadIdx.x];
+      __syncthreads();
+      for (int t = threadIdx.x; t <= last; t += kThreads)
+        sc[t] = dot_row(reinterpret_cast<const uint8_t*>(rk) + (size_t)t * dh,
+                        q, dh, false) *
+                __bfloat162float(rks[t]);
+      __syncthreads();
+      softmax_row(sc, last + 1, red);
+      for (int t = threadIdx.x; t <= last; t += kThreads)
+        sc[t] *= __bfloat162float(rvs[t]);
+      __syncthreads();
+      pv_product(sc, reinterpret_cast<const uint8_t*>(rv), last + 1, dh, dh,
+                 false, part, s.att + (size_t)m * d + hh * dh);
+    }
   }
 }
 
@@ -356,9 +378,11 @@ __device__ void cross_attention(const Step& s, int layer, float* smem,
   float* q = smem;
   float* sc = smem + 64;
   float* part = sc + (s.t_ring > K ? s.t_ring : K);
+  const int streams = s.multi ? 1 : M;
   for (int item = blockIdx.x; item < M * H; item += gridDim.x) {
     const int m = item / H, hh = item % H;
-    const size_t base = ((size_t)layer * M + m) * H + hh;
+    const size_t base =
+        ((size_t)layer * streams + (s.multi ? 0 : m)) * H + hh;
     const uint8_t* ck = s.cross_k + base * K * rb;
     const uint8_t* cv = s.cross_v + base * K * rb;
     const __nv_bfloat16* cks = s.cross_ks + base * K;
@@ -450,20 +474,21 @@ cudaError_t launch(const Step& s, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// One decoder step; see the note above. hid holds x0 on entry; the rings
-// take the fresh columns in place; align must be zeroed. Returns a
-// cudaError_t (0 = launched).
+// One decoder step; see the note above. hid holds x0 on entry (M rows); the
+// rings take the fresh columns in place; align [M, A, K] must be zeroed.
+// multi = 1 takes the M rows as tokens pos .. pos+M-1 of one stream, whose
+// ring and cross cache have batch 1. Returns a cudaError_t (0 = launched).
 extern "C" int cw_decode_step(
     const void* w_ptrs, const void* vec, void* hid, void* scratch,
     void* ring_k, void* ring_v, void* ring_ks, void* ring_vs,
     const void* cross_k, const void* cross_v, const void* cross_ks,
     const void* cross_vs, const void* align_lh, void* align, int m,
     int n_layers, int d, int f, int h, int dh, int t_ring, int pos,
-    int k_enc, int n_align, int cross_int4, int align_bf16, float qscale,
-    void* stream) {
+    int k_enc, int n_align, int cross_int4, int align_bf16, int multi,
+    float qscale, void* stream) {
   if (m < 1 || m > 8 || n_layers < 1 || h < 1 || d != h * dh ||
       (dh != 16 && dh != 32 && dh != 64) || d % 16 != 0 || f % 16 != 0 ||
-      pos < 0 || pos >= t_ring || k_enc < 1 || n_align < 1)
+      pos < 0 || pos + (multi ? m : 1) > t_ring || k_enc < 1 || n_align < 1)
     return (int)cudaErrorInvalidValue;
   const int wide = d > f ? d : f;
   const int tk = t_ring > k_enc ? t_ring : k_enc;
@@ -501,6 +526,7 @@ extern "C" int cw_decode_step(
   s.n_align = n_align;
   s.cross_int4 = cross_int4;
   s.align_bf16 = align_bf16;
+  s.multi = multi != 0;
   s.qscale = qscale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from crisperwhisper_tpu.config import SpecialTokens
+from ..config import SpecialTokens
 
 
 def build_prompt(specials: SpecialTokens, batch: int,

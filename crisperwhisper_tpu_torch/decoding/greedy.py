@@ -20,8 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from crisperwhisper_tpu.config import (GenerationOptions, SpecialTokens,
-                                       WhisperArch)
+from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
 from ..models.whisper import decode_step, decode_step_multi, init_cache
 from ..ops import decode_step as step_kernel

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from crisperwhisper_tpu.config import SpecialTokens, WhisperArch
+from ..config import SpecialTokens, WhisperArch
 
 from ..models.whisper import decode_step, init_cache
 

@@ -12,10 +12,12 @@ into the next power-of-2 bucket, so a batch takes at most log2(B) shapes.
 
 Quantized caches (``kv_cache_int8``/``int4``, ``self_kv_cache_int8``/
 ``int4``) map to init_cache's cache dtypes as in the reference
-(longform.py:42-51). Outside this port's slice (each raises
-NotImplementedError naming its ROADMAP queue-1 item): beam search (11),
-prompt_ids and condition_on_prev_tokens (12), speculative assistants
-(13).
+(longform.py:42-51). Greedy windows at temperature 0 take the speculative
+path (decoding/assisted.py) when ``generate`` is given an assistant; its
+output is pinned to plain greedy's, so the fallback gates see the same
+tokens. Outside this port's slice (each raises NotImplementedError naming
+its ROADMAP queue-1 item): beam search (11), prompt_ids and
+condition_on_prev_tokens (12).
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from crisperwhisper_tpu.config import (GenerationOptions, SpecialTokens,
-                                       WhisperArch)
+from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
 from ..models.whisper import INT4, INT8, alignment_selector, encode
 from ..ops.alignment import attention_to_jump_times
@@ -59,9 +60,6 @@ def check_supported(opts: GenerationOptions) -> None:
     if opts.condition_on_prev_tokens:
         raise NotImplementedError("condition_on_prev_tokens is not ported "
                                   "yet (ROADMAP queue 1, item 12)")
-    if opts.prompt_lookup:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP queue 1, item 13)")
 
 
 def _kv_dtype(opts: GenerationOptions) -> str | None:
@@ -78,18 +76,36 @@ def _self_kv_dtype(opts: GenerationOptions) -> str | None:
 
 def _decode_window(params, arch, specials, opts, segment_features,
                    prompt, max_new, suppress, begin_suppress, align_sel,
-                   temperature, generator, dtw_frames):
+                   temperature, generator, dtw_frames, assistant=None):
     """One batched decode of 30 s windows + the alignment pass. Returns
     host arrays: sequences, num_generated, sum_logprobs, no_speech,
-    jump_times (seconds, or None without alignment heads)."""
+    jump_times (seconds, or None without alignment heads).
+
+    With an ``assistant`` ("prompt_lookup" or a (draft_params,
+    draft_arch) pair) a window at temperature 0 decodes speculatively
+    (reference longform.py:77-111); sampled temperatures decode plainly."""
     encoder_out = encode(params, arch, segment_features)
-    res = greedy_decode(
-        params, arch, specials, opts, encoder_out, torch.from_numpy(prompt),
-        max_new_tokens=max_new, suppress_mask=suppress,
-        begin_suppress_mask=begin_suppress, align_sel=align_sel,
-        return_timestamps=opts.return_timestamps, temperature=temperature,
-        generator=generator, cross_cache_dtype=_kv_dtype(opts),
-        self_cache_dtype=_self_kv_dtype(opts))
+    kw = dict(max_new_tokens=max_new, suppress_mask=suppress,
+              begin_suppress_mask=begin_suppress, align_sel=align_sel,
+              return_timestamps=opts.return_timestamps,
+              cross_cache_dtype=_kv_dtype(opts),
+              self_cache_dtype=_self_kv_dtype(opts))
+    prompt = torch.from_numpy(prompt)
+    if assistant is not None and temperature == 0.0:
+        from .assisted import assisted_decode
+        draft_params = draft_arch = draft_enc = None
+        if assistant != "prompt_lookup":
+            draft_params, draft_arch = assistant
+            # a self-draft (no encoder of its own) reads the main states
+            draft_enc = (encode(draft_params, draft_arch, segment_features)
+                         if "encoder" in draft_params else encoder_out)
+        res = assisted_decode(params, arch, draft_params, draft_arch,
+                              specials, opts, encoder_out, draft_enc, prompt,
+                              spec_len=opts.assistant_spec_len, **kw)
+    else:
+        res = greedy_decode(params, arch, specials, opts, encoder_out,
+                            prompt, temperature=temperature,
+                            generator=generator, **kw)
     outs = [res.sequences, res.num_generated, res.sum_logprobs,
             res.no_speech_probs]
     if align_sel is not None:
@@ -117,7 +133,9 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
              language_token: int | None = None,
              task_token: int | None = None,
              detect_language_first: bool = False,
-             generator: torch.Generator | None = None) -> GenerateOutput:
+             generator: torch.Generator | None = None,
+             assistant: tuple[Any, WhisperArch] | str | None = None
+             ) -> GenerateOutput:
     """Transcribe batched (possibly > 30 s) mel features.
 
     input_features: [B, n_mels, total_frames] f32, on the model's device;
@@ -127,6 +145,9 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
     max_frames: [B] per-row seek bound; defaults to total_frames.
     generator: torch.Generator on the features' device for the sampled
       fallback temperatures (default: seeded with opts.prompt_seed).
+    assistant: optional (draft_params, draft_arch) pair, or
+      "prompt_lookup": windows at temperature 0 decode speculatively
+      (decoding/assisted.py), with the same output as plain greedy.
     """
     check_supported(opts)
     feats = input_features
@@ -239,7 +260,7 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
             seqs, ngen, score, no_sp, jt = _decode_window(
                 params, arch, specials, opts, segment, iter_prompt, max_new,
                 suppress, begin_suppress, align_sel, float(temperature),
-                generator, dtw_frames[rows])
+                generator, dtw_frames[rows], assistant)
             is_last = t_idx == len(opts.temperatures) - 1
             for j in range(nact):
                 if resolved[j]:

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from crisperwhisper_tpu.config import GenerationOptions, SpecialTokens
+from ..config import GenerationOptions, SpecialTokens
 
 NEG_INF = float("-inf")
 

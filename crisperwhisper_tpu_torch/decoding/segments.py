@@ -1,8 +1,7 @@
 # Verbatim copy of crisperwhisper_tpu/decoding/segments.py: the functions are
-# unchanged, only imports of shared modules point at
-# crisperwhisper_tpu. The original sits behind a package __init__ that
-# imports jax; this copy goes once that __init__ exports lazily
-# (ROADMAP queue 1, item 16).
+# unchanged, only the imports point at the port's own modules. The port
+# imports nothing of the JAX package; tests/test_torch_pipeline.py pins
+# this copy to the original.
 """Segment extraction and output padding — host-side numpy logic.
 
 Semantic ports (behavior-exact, re-derived for numpy) of:

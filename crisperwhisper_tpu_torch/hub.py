@@ -4,8 +4,8 @@ Port of crisperwhisper_tpu/hub.py for local HF-format checkpoint
 directories (config.json, generation_config.json,
 preprocessor_config.json, *.safetensors, vocab.json/merges.txt/
 added_tokens.json). ``resolve_checkpoint`` and ``load_generation_options``
-are verbatim copies of the originals, which live in a module that imports
-jax (ROADMAP queue 1, item 16).
+are verbatim copies of the originals (tests/test_torch_pipeline.py pins
+them).
 """
 
 from __future__ import annotations
@@ -16,10 +16,9 @@ from typing import Any
 
 import torch
 
-from crisperwhisper_tpu.config import (FeatureConfig, GenerationOptions,
-                                       PipelineOptions, WhisperArch,
-                                       load_checkpoint_configs)
-from crisperwhisper_tpu.tokenizer.whisper_tokenizer import WhisperTokenizer
+from .config import (FeatureConfig, GenerationOptions, PipelineOptions,
+                      WhisperArch, load_checkpoint_configs)
+from .tokenizer.whisper_tokenizer import WhisperTokenizer
 
 from .models.loader import load_params
 from .pipeline.asr import ASRPipeline, specials_from_tokenizer
@@ -135,27 +134,31 @@ def load_pipeline(model_dir: str, *,
     """Build the ASR pipeline from a local checkpoint directory — the
     one-call equivalent of ref:transcribe.py:8-31.
 
-    device: where the model runs (default: CUDA when available, else the
-    CPU). params: an already-built parameter dict in the loader's layout
-    (e.g. models.whisper.init_params on the card) — skips the safetensors
-    read.
+    device: where the model runs, "cuda" by default; without a CUDA card
+    that raises RuntimeError, and the CPU has to be asked for with
+    device="cpu". params: an already-built parameter dict in the loader's
+    layout (e.g. models.whisper.init_params on the card) — skips the
+    safetensors read.
 
     quantize: True fuses the decoder's q/k/v (query scale folded in) and
     quantizes its dense weights to int8 per output channel, with an int8
     cross cache; "serving" does the same with an int4 cross cache and an
     int8 self ring — the reference's benched serving configuration, whose
     decode steps run as one kernel with ``gen_opts.b1_decode_kernel``
-    (ops/decode_step.py). It applies to ``params`` too. assistant is
-    outside the port's slice and raises NotImplementedError (ROADMAP
-    queue 1, item 13)."""
+    (ops/decode_step.py). It applies to ``params`` too.
+
+    assistant: optional speculative-decoding mode — "prompt_lookup"
+    (draft-free n-gram candidates) or "self:K" (the checkpoint's own first
+    K decoder layers propose, decoding/assisted.make_self_draft). The
+    output equals plain greedy decoding's either way."""
     if isinstance(quantize, str) and quantize != "serving":
         raise ValueError(f"quantize={quantize!r}: use False, True, or "
                          "'serving'")
-    if assistant is not None:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP queue 1, item 13)")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("load_pipeline: no CUDA device; the port runs on "
+                           "the card by default, pass device=\"cpu\" to run "
+                           "on the CPU")
     model_dir = resolve_checkpoint(model_dir)
     cfgs = load_checkpoint_configs(model_dir)
     arch = WhisperArch.from_hf_config(cfgs["config"])
@@ -192,10 +195,21 @@ def load_pipeline(model_dir: str, *,
         hop_length=pp.get("hop_length", 160),
         chunk_length=pp.get("chunk_length", 30))
 
+    assistant_obj: Any = None
+    if assistant == "prompt_lookup":
+        assistant_obj = "prompt_lookup"
+    elif isinstance(assistant, str) and assistant.startswith("self:"):
+        from .decoding.assisted import make_self_draft
+        assistant_obj = make_self_draft(params, arch,
+                                        int(assistant.split(":", 1)[1]))
+    elif assistant is not None:
+        raise ValueError(f"unknown assistant mode {assistant!r} "
+                         "(use 'prompt_lookup' or 'self:K')")
+
     pipe = ASRPipeline(params, arch, tokenizer,
                        specials=specials_from_tokenizer(tokenizer),
                        gen_opts=opts, pipe_opts=pipe_opts,
-                       feat_cfg=feat_cfg)
+                       feat_cfg=feat_cfg, assistant=assistant_obj)
     if language is None and cfgs["generation_config"].get("is_multilingual"):
         # a legacy forced_decoder_ids that pins a language token makes
         # the language DEFINED — no detection (hf is_lang_id_undefined,

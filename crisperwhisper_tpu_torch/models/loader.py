@@ -23,7 +23,7 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
-from crisperwhisper_tpu.config import WhisperArch
+from ..config import WhisperArch
 
 from .whisper import Params
 

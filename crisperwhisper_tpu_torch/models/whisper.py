@@ -31,9 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from crisperwhisper_tpu.config import WhisperArch
+from ..config import WhisperArch
 
 from ..ops.fused_attention import fused_attention
+from ..ops.ring_write import write_block_columns_group
 
 Params = dict[str, Any]
 
@@ -347,29 +348,69 @@ def quantized_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), p
 
 
-def _write_quantized(ring: torch.Tensor, scales: torch.Tensor, li: int,
-                     position: int, end: int, x: torch.Tensor) -> None:
-    """Quantize new K or V rows x [B, H, S, Dh] over Dh and write them at
-    ring slots [position, end) of layer li."""
-    kind = _kind(ring)
-    q, s = _quantize(x.float(), _QMAX[kind])
-    ring[li, :, :, position:end] = _store(q, kind)
-    scales[li, :, :, position:end] = s
+def _positions(position, s: int, dev: torch.device
+               ) -> tuple[torch.Tensor | None, int, int]:
+    """(per-row start positions as a device int32 [B] tensor, or None for a
+    scalar position; the lowest start; the end of the live ring prefix).
+    A tensor position may lie on the host, where its bounds are read
+    without a device sync."""
+    if isinstance(position, torch.Tensor) and position.dim() == 1:
+        lo, hi = (int(v) for v in position.aminmax())
+        return position.to(device=dev, dtype=torch.int32), lo, hi + s
+    position = int(position)
+    return None, position, position + s
+
+
+def _quantized_block(x: torch.Tensor, kind: str
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """New K or V rows x [B, H, S, Dh] quantized over Dh: (the ring's
+    stored values [B, H, S, Dh or Dh/2], bf16 scales [B, H, S])."""
+    q, sc = _quantize(x.float(), _QMAX[kind])
+    return _store(q, kind), sc
+
+
+def _write_block(cache: DecoderCache, li: int, position: int,
+                 pos_rows: torch.Tensor | None, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> None:
+    """Write the new K/V rows [B, H, S, Dh] of layer li into the self
+    ring (quantized over Dh when it is): at slots [position, position + S)
+    for a scalar position, else row b at [pos_rows[b], pos_rows[b] + S)
+    through ops/ring_write.py, all tensors in one call."""
+    pairs = [(cache.self_k, k_new), (cache.self_v, v_new)]
+    if cache.self_k_scale is not None:
+        kind = _kind(cache.self_k)
+        (kq, ks), (vq, vs) = (_quantized_block(k_new, kind),
+                              _quantized_block(v_new, kind))
+        pairs = [(cache.self_k, kq), (cache.self_v, vq),
+                 (cache.self_k_scale, ks), (cache.self_v_scale, vs)]
+    if pos_rows is not None:
+        write_block_columns_group(
+            [(ring, blk.to(ring.dtype)) for ring, blk in pairs], li,
+            pos_rows)
+        return
+    end = position + k_new.shape[2]
+    for ring, blk in pairs:
+        ring[li, :, :, position:end] = blk
 
 
 @torch.inference_mode()
 def decode_step_multi(params: Params, arch: WhisperArch,
-                      tokens: torch.Tensor, position: int,
+                      tokens: torch.Tensor, position: int | torch.Tensor,
                       cache: DecoderCache,
                       align_sel: np.ndarray | None = None
                       ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
-    """S-token incremental step (block prefill) at positions
-    [position, position + S). Writes the S new K/V rows into the self
-    cache (quantized per column over Dh when the ring is), attends
-    causally over the live prefix only (the semantics of the reference's
-    staged_ring_quantum=0: its masked slots contribute exact zeros) and
-    captures the alignment heads' cross-attention. Activations take the
-    ring's dtype, or the token embedding's when the ring is quantized.
+    """S-token incremental step (block prefill, or the verify block of
+    speculative decoding) at positions [position, position + S).
+    ``position`` is an int, or an int32 [B] tensor of per-row positions
+    (the reference's vector form, whisper.py:653-728): row b's block then
+    lands at ring slots [position[b], position[b] + S). Writes the S new
+    K/V rows into the self cache (quantized per column over Dh when the
+    ring is), attends causally (query i of row b to slots <=
+    position[b] + i) over the live prefix only, up to the largest
+    position + S (the semantics of the reference's staged_ring_quantum=0:
+    its masked slots contribute exact zeros) and captures the alignment
+    heads' cross-attention. Activations take the ring's dtype, or the
+    token embedding's when the ring is quantized.
 
     Returns (logits [B, S, vocab] f32, cache, align_probs [B, A, S, K]
     f32 — zeros when align_sel is None)."""
@@ -380,17 +421,25 @@ def decode_step_multi(params: Params, arch: WhisperArch,
     cross_quant = cache.cross_k_scale is not None
     dtype = dec["tok_emb"].dtype if self_quant else cache.self_k.dtype
     dev = tokens.device
-    end = position + s
-    if end > cache.self_k.shape[3]:
-        raise ValueError(f"position {position} + {s} tokens exceeds the "
-                         f"cache length {cache.self_k.shape[3]}")
+    pos_rows, lo, end = _positions(position, s, dev)
+    if end > cache.self_k.shape[3] or lo < 0:
+        raise ValueError(f"positions [{lo}, {end}) leave the cache of "
+                         f"length {cache.self_k.shape[3]}")
+    steps = torch.arange(s, device=dev)
+    if pos_rows is None:
+        pos_ids = lo + steps                                      # [S]
+    else:
+        pos_ids = pos_rows.long()[:, None] + steps[None, :]       # [B, S]
     x = dec["tok_emb"][tokens].to(dtype) \
-        + dec["pos_emb"][position:end].to(dtype)                 # [B, S, d]
+        + dec["pos_emb"][pos_ids].to(dtype)                      # [B, S, d]
     mask = None
-    if s > 1:
-        # query at position + i attends to slots <= position + i
+    if pos_rows is not None:
+        # query i of row b attends to slots <= position[b] + i
+        mask = (torch.arange(end, device=dev)[None, None, None, :]
+                <= pos_ids[:, None, :, None])                  # [B, 1, S, T]
+    elif s > 1:
         mask = (torch.arange(end, device=dev)[None, :]
-                <= (position + torch.arange(s, device=dev))[:, None])
+                <= pos_ids[:, None])                           # [S, T]
     scale = arch.head_dim ** -0.5
     n_align = align_sel.shape[-1] if align_sel is not None else 1
     aligned = torch.zeros((b, n_align, s, cache.cross_k.shape[3]),
@@ -400,18 +449,13 @@ def decode_step_multi(params: Params, arch: WhisperArch,
     for li, lp in enumerate(dec["layers"]):
         y = layer_norm(x, lp["ln1"])
         q, k_new, v_new = _self_qkv(y, lp["self"], h, scale)
+        _write_block(cache, li, lo, pos_rows, k_new, v_new)
         if self_quant:
-            _write_quantized(cache.self_k, cache.self_k_scale, li, position,
-                             end, k_new)
-            _write_quantized(cache.self_v, cache.self_v_scale, li, position,
-                             end, v_new)
             out, _ = quantized_attention(
                 q, cache.self_k[li, :, :, :end], cache.self_v[li, :, :, :end],
                 cache.self_k_scale[li, :, :, :end],
                 cache.self_v_scale[li, :, :, :end], mask)
         else:
-            cache.self_k[li, :, :, position:end] = k_new
-            cache.self_v[li, :, :, position:end] = v_new
             out, _ = attention(q, cache.self_k[li, :, :, :end],
                                cache.self_v[li, :, :, :end], mask)
         x = x + dense(_merge_heads(out), lp["self"]["o"])
@@ -438,11 +482,12 @@ def decode_step_multi(params: Params, arch: WhisperArch,
 
 
 def decode_step(params: Params, arch: WhisperArch, tokens: torch.Tensor,
-                position: int, cache: DecoderCache,
+                position: int | torch.Tensor, cache: DecoderCache,
                 align_sel: np.ndarray | None = None
                 ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
-    """One incremental decoder step: tokens [B] at ``position``.
-    Returns (logits [B, vocab] f32, cache, align_probs [B, A, K] f32)."""
+    """One incremental decoder step: tokens [B] at ``position`` (an int,
+    or an int32 [B] tensor of per-row positions). Returns (logits [B,
+    vocab] f32, cache, align_probs [B, A, K] f32)."""
     logits, cache, aligned = decode_step_multi(
         params, arch, tokens[:, None], position, cache, align_sel)
     return logits[:, 0], cache, aligned[:, :, 0]

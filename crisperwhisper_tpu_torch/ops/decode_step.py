@@ -1,12 +1,15 @@
 """Whole-step quantized decoder: one kernel per decode step, all layers.
 
-Port of crisperwhisper_tpu/ops/pallas_decode_b1.py for the two modes the
-greedy loop reaches: ``decode_step_b1`` (one stream) and
-``decode_step_rows`` (2-8 distinct streams at one shared position). Both
-run ``whole_step``, which launches ``csrc/decode_step.cu`` for CUDA
-tensors and runs ``whole_step_plain`` only for CPU tensors.
+Port of crisperwhisper_tpu/ops/pallas_decode_b1.py for the three modes the
+greedy and speculative loops reach: ``decode_step_b1`` (one stream),
+``decode_step_rows`` (2-8 distinct streams at one shared position) and
+``decode_step_b1_multi`` (the speculative verify block: S <= 8 consecutive
+tokens of one stream). All run ``whole_step``, which launches
+``csrc/decode_step.cu`` for CUDA tensors and runs ``whole_step_plain``
+only for CPU tensors.
 
-The gated configuration (``supported``/``supported_rows``) is the
+The gated configuration (``supported``/``supported_rows``/
+``supported_multi``) is the
 reference's: fused-QKV int8 decoder weights (models/quantize.py), an int8
 self ring with bf16 per-position scales, an int8 or packed-int4 cross
 cache, a scalar position, no key mask, no beam grouping. On top of that
@@ -21,7 +24,10 @@ LayerNorms in f32 with eps 1e-5; each dense as (x · W_int8) * scale +
 bias in f32, the cross-q scale and bias times head_dim**-0.5; the fresh
 K/V column quantized over Dh from the f32 scale, rounded half-to-even,
 its scale stored and used as bf16, written into the ring at ``position``
-before the self attention reads slots [0, position]; softmax in f32; P
+before the self attention reads slots [0, position] (in the multi mode all
+S columns at [position, position + S) before row i reads slots [0,
+position + i], as the reference's fresh scores do, pallas_decode_b1.py
+:356-378); softmax in f32; P
 times the per-position V scale before P·V; exact erf GELU. The alignment
 capture takes each alignment head's cross probabilities, rounded to bf16
 only when ``align_dtype`` is bf16. The final LayerNorm and the tied LM
@@ -44,13 +50,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from crisperwhisper_tpu.config import WhisperArch
+from ..config import WhisperArch
 
 from .. import _build
 from ..models.whisper import (DecoderCache, _quantize, cache_values,
                               layer_norm)
 
 MAX_ROWS = 8                     # rows of one step (the reference's cap)
+MODES = ("b1", "rows", "multi")
 THREADS = 512                    # block size of the CUDA kernel
 SMEM_LIMIT = 232448              # bytes of shared memory a block may use
 _HEAD_DIMS = (16, 32, 64)
@@ -115,6 +122,21 @@ def supported_rows(params: Any, arch: WhisperArch, cache: DecoderCache,
             and _kernel_takes(arch, cache, r))
 
 
+def supported_multi(params: Any, arch: WhisperArch, cache: DecoderCache,
+                    key_mask, position, tokens) -> bool:
+    """The verify-block gate: ``supported`` for tokens [1, S] with 1 <= S
+    <= MAX_ROWS, the S slots [position, position + S) inside the ring and
+    the kernel's shape limits at M = S."""
+    if tokens.dim() != 2 or not _scalar(position):
+        return False
+    s = tokens.shape[1]
+    return (supported(params, arch, cache, key_mask, 1, position, tokens)
+            and 1 <= s <= MAX_ROWS and cache.self_k.shape[1] == 1
+            and cache.cross_k.shape[1] == 1
+            and int(position) + s <= cache.self_k.shape[3]
+            and _kernel_takes(arch, cache, s))
+
+
 # ---------------------------------------------------------------------------
 # The plain version
 # ---------------------------------------------------------------------------
@@ -143,17 +165,26 @@ def _gemv(y: torch.Tensor, p: dict, extra: float | None = None
 def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
                      position: int, cache: DecoderCache,
                      heads: tuple[tuple[int, int] | None, ...],
-                     align_bf16: bool = False
+                     align_bf16: bool = False, multi: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's algebra in plain PyTorch. x0 [M, d] f32 (row m is
-    stream m of the rings and cross caches); ``heads`` names the (layer,
-    head) of each alignment slot (None: no source). Writes each layer's
-    fresh K/V column into the ring at ``position`` in place and returns
-    (hid [M, d] f32 — the residual stream after the last layer,
-    align [M, A, K] f32)."""
+    """The kernel's algebra in plain PyTorch. x0 [M, d] f32: row m is
+    stream m of the rings and cross caches, or with ``multi`` the token at
+    position + m of the one stream (rings and cross caches of batch 1);
+    ``heads`` names the (layer, head) of each alignment slot (None: no
+    source). Writes each layer's fresh K/V columns into the ring at
+    ``position`` (M of them with ``multi``) in place and returns (hid [M,
+    d] f32 — the residual stream after the last layer, align [M, A, K]
+    f32)."""
     m, d = x0.shape
     h, dh = arch.decoder_attention_heads, arch.head_dim
-    live = position + 1
+    live = position + (m if multi else 1)
+    if multi:             # row i attends to slots <= position + i
+        causal = (torch.arange(live, device=x0.device)[None, None, :]
+                  <= position
+                  + torch.arange(m, device=x0.device)[:, None, None])
+
+    def rows(x):          # [R, ...] per-stream slice -> [M, ...] per row
+        return x.expand(m, *x.shape[1:]) if multi else x
     align = torch.zeros((m, len(heads), cache.cross_k.shape[3]),
                         dtype=torch.float32, device=x0.device)
     xr = x0.float()
@@ -164,31 +195,37 @@ def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
         for x, ring, scales in ((k, cache.self_k, cache.self_k_scale),
                                 (v, cache.self_v, cache.self_v_scale)):
             qv, sc = _quantize(x, 127.0)
-            ring[li, :, :, position] = qv
-            scales[li, :, :, position] = sc
+            if multi:
+                ring[li, 0, :, position:live] = qv.transpose(0, 1)
+                scales[li, 0, :, position:live] = sc.T
+            else:
+                ring[li, :, :, position] = qv
+                scales[li, :, :, position] = sc
         sk = torch.einsum("mhd,mhtd->mht", q,
-                          cache.self_k[li, :, :, :live].float()) \
-            * cache.self_k_scale[li, :, :, :live].float()
+                          rows(cache.self_k[li, :, :, :live]).float()) \
+            * rows(cache.self_k_scale[li, :, :, :live]).float()
+        if multi:
+            sk = sk.masked_fill(~causal, float("-inf"))
         p = torch.softmax(sk, dim=-1) \
-            * cache.self_v_scale[li, :, :, :live].float()
+            * rows(cache.self_v_scale[li, :, :, :live]).float()
         out = torch.einsum("mht,mhtd->mhd", p,
-                           cache.self_v[li, :, :, :live].float())
+                           rows(cache.self_v[li, :, :, :live]).float())
         xr = xr + _gemv(out.reshape(m, d), lp["self"]["o"])
 
         qc = _gemv(_ln(xr, lp["ln2"]), lp["cross"]["q"],
                    extra=dh ** -0.5).reshape(m, h, dh)
         sk = torch.einsum("mhd,mhkd->mhk", qc,
-                          cache_values(cache.cross_k[li]).float()) \
-            * cache.cross_k_scale[li].float()
+                          rows(cache_values(cache.cross_k[li])).float()) \
+            * rows(cache.cross_k_scale[li]).float()
         p = torch.softmax(sk, dim=-1)
         for a, src in enumerate(heads):
             if src is not None and src[0] == li:
                 row = p[:, src[1]]
                 align[:, a] = (row.to(torch.bfloat16).float() if align_bf16
                                else row)
-        pv = p * cache.cross_v_scale[li].float()
+        pv = p * rows(cache.cross_v_scale[li]).float()
         out = torch.einsum("mhk,mhkd->mhd", pv,
-                           cache_values(cache.cross_v[li]).float())
+                           rows(cache_values(cache.cross_v[li])).float())
         xr = xr + _gemv(out.reshape(m, d), lp["cross"]["o"])
 
         hmid = F.gelu(_gemv(_ln(xr, lp["ln3"]), lp["mlp"]["fc1"]))
@@ -233,7 +270,7 @@ def _vec_row(lp: dict) -> torch.Tensor:
 def _operands(params: Any, arch: WhisperArch, device) -> _Operands:
     layers = params["decoder"]["layers"]
     owner = layers[0]["self"]["qkv"]["w_q"]
-    key = id(owner)
+    key = (id(owner), len(layers))  # a self-draft shares the first layers
     ops = _OPERANDS.get(key)
     if ops is not None and ops.owner() is owner:
         return ops
@@ -279,13 +316,14 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
 def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
                position: int, cache: DecoderCache,
                heads: tuple[tuple[int, int] | None, ...],
-               align_bf16: bool = False
+               align_bf16: bool = False, multi: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """``whole_step_plain``'s contract. CUDA tensors launch the kernel
-    (csrc/decode_step.cu) once; CPU tensors take the plain version."""
+    (csrc/decode_step.cu) once, counted in ``launches`` and by mode in
+    ``mode_launches``; CPU tensors take the plain version."""
     if x0.device.type == "cpu":
         return whole_step_plain(params, arch, x0, position, cache, heads,
-                                align_bf16)
+                                align_bf16, multi)
     if x0.device.type != "cuda":
         raise ValueError(f"whole_step: unsupported device {x0.device}")
     dev = x0.device
@@ -298,12 +336,14 @@ def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
     if not 1 <= m <= MAX_ROWS or not _kernel_takes(arch, cache, m):
         raise ValueError(f"whole_step: unsupported shape (rows {m}, head "
                          f"dim {dh}, d {d}, ffn {f})")
-    if not 0 <= position < t_ring:
-        raise ValueError(f"whole_step: position {position} outside the "
-                         f"ring of {t_ring}")
+    n_new = m if multi else 1
+    if not 0 <= position <= t_ring - n_new:
+        raise ValueError(f"whole_step: slots [{position}, {position + n_new})"
+                         f" outside the ring of {t_ring}")
     _check("x0", x0, torch.float32, (m, d), dev)
-    ring = (n_layers, m, h, t_ring)
-    cross = (n_layers, m, h, k_enc)
+    streams = 1 if multi else m
+    ring = (n_layers, streams, h, t_ring)
+    cross = (n_layers, streams, h, k_enc)
     for name in ("self_k", "self_v"):
         _check(name, getattr(cache, name), torch.int8, ring + (dh,), dev)
     for name in ("self_k_scale", "self_v_scale"):
@@ -331,14 +371,17 @@ def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
             cache.cross_v.data_ptr(), cache.cross_k_scale.data_ptr(),
             cache.cross_v_scale.data_ptr(), table.data_ptr(),
             align.data_ptr(), m, n_layers, d, f, h, dh, t_ring, position,
-            k_enc, len(heads), int(cross_int4), int(align_bf16),
+            k_enc, len(heads), int(cross_int4), int(align_bf16), int(multi),
             dh ** -0.5, stream)
     _build.check(err, "whole_step")
     whole_step.launches += 1
+    whole_step.mode_launches["multi" if multi else
+                             "b1" if m == 1 else "rows"] += 1
     return hid, align
 
 
 whole_step.launches = 0
+whole_step.mode_launches = dict.fromkeys(MODES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -404,3 +447,31 @@ def decode_step_rows(params: Any, arch: WhisperArch, tokens: torch.Tensor,
     [R, A, K] f32)."""
     return _step(params, arch, tokens, position, cache, align_sel,
                  align_dtype)
+
+
+@torch.inference_mode()
+def decode_step_b1_multi(params: Any, arch: WhisperArch,
+                         tokens: torch.Tensor, position: int,
+                         cache: DecoderCache,
+                         align_sel: np.ndarray | None = None,
+                         align_dtype: torch.dtype = torch.float32
+                         ) -> tuple[torch.Tensor, DecoderCache,
+                                    torch.Tensor]:
+    """models/whisper.decode_step_multi at batch 1 in the gated
+    configuration (``supported_multi``), the speculative verify block
+    (pallas_decode_b1.py:882-932): tokens [1, S] at positions [position,
+    position + S), causal among themselves; all S fresh K/V columns are
+    quantized and written at ring slots [position, position + S). The LM
+    head for the S rows stays a matmul outside the kernel. Returns (logits
+    [1, S, V] f32, cache, align_probs [1, A, S, K] f32)."""
+    dec = params["decoder"]
+    position = int(position)
+    s = tokens.shape[1]
+    x0 = (dec["tok_emb"][tokens[0]].float()
+          + dec["pos_emb"][position:position + s].float())      # [S, d]
+    hid, align = whole_step(params, arch, x0, position, cache,
+                            _heads(align_sel),
+                            align_bf16=align_dtype == torch.bfloat16,
+                            multi=True)
+    return (_lm_head(dec, hid)[None], cache,
+            align.transpose(0, 1)[None])

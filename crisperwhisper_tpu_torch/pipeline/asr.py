@@ -4,12 +4,12 @@ Port of crisperwhisper_tpu/pipeline/asr.py (hf
 pipelines/automatic_speech_recognition.py + ChunkPipeline): overlapping
 30 s windows (stride chunk/6 each side, :447-448), batched across chunks
 and audios into [B, n_samples] device batches, mel + encode + seek-loop
-decode per batch, then the shared ``decode_asr`` stitcher merges the
-overlaps and forms the words.
+decode per batch, then the ``decode_asr`` stitcher (the port's copy of
+tokenizer/stitcher.py) merges the overlaps and forms the words. An
+assistant makes the greedy windows speculative (decoding/assisted.py).
 
 ``Chunk``, ``chunk_iter`` and ``specials_from_tokenizer`` are verbatim
-copies of the originals, which live in a module that imports jax; the
-copies go once the JAX package exports lazily (ROADMAP queue 1, item 16).
+copies of the originals (tests/test_torch_pipeline.py pins them).
 """
 
 from __future__ import annotations
@@ -22,12 +22,11 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 import torch
 
-from crisperwhisper_tpu.config import (FeatureConfig, GenerationOptions,
-                                       PipelineOptions, SpecialTokens,
-                                       WhisperArch)
-from crisperwhisper_tpu.pipeline.pauses import adjust_pauses
-from crisperwhisper_tpu.tokenizer.stitcher import decode_asr
-from crisperwhisper_tpu.tokenizer.whisper_tokenizer import WhisperTokenizer
+from ..config import (FeatureConfig, GenerationOptions, PipelineOptions,
+                       SpecialTokens, WhisperArch)
+from .pauses import adjust_pauses
+from ..tokenizer.stitcher import decode_asr
+from ..tokenizer.whisper_tokenizer import WhisperTokenizer
 
 from ..audio.io import load_audio
 from ..audio.mel import extract_features
@@ -85,7 +84,12 @@ class ASRPipeline:
                  specials: SpecialTokens | None = None,
                  gen_opts: GenerationOptions = GenerationOptions(),
                  pipe_opts: PipelineOptions = PipelineOptions(),
-                 feat_cfg: FeatureConfig | None = None):
+                 feat_cfg: FeatureConfig | None = None,
+                 assistant: Any | None = None):
+        """assistant: optional speculative-decoding assistant passed to
+        generate(): a (draft_params, draft_arch) pair (e.g.
+        decoding.assisted.make_self_draft) or "prompt_lookup". When None,
+        gen_opts.prompt_lookup still turns on prompt lookup."""
         self.params = params
         self.arch = arch
         self.tokenizer = tokenizer
@@ -94,6 +98,7 @@ class ASRPipeline:
         self.pipe_opts = pipe_opts
         self.feat_cfg = feat_cfg or FeatureConfig(
             feature_size=arch.num_mel_bins)
+        self.assistant = assistant
         self.device = params["decoder"]["tok_emb"].device
         self.meter = WallMeter()
         # auto language detection for multilingual checkpoints when no
@@ -194,11 +199,20 @@ class ASRPipeline:
             feats = extract_features(
                 torch.from_numpy(batch).to(self.device), self.feat_cfg)
             lang_tok = self._language_token()
+            assistant = (self.assistant if self.assistant is not None
+                         else ("prompt_lookup" if opts.prompt_lookup
+                               else None))
+            # PipelineOptions.assistant_max_batch: speculate only on
+            # batches of at most that many rows (reference asr.py:258-264)
+            amb = self.pipe_opts.assistant_max_batch
+            if amb is not None and gb > amb:
+                assistant = None
             gen = generate(self.params, self.arch, self.specials, opts,
                            feats, num_frames=num_frames,
                            language_token=lang_tok,
                            detect_language_first=(self.detect_language
-                                                  and lang_tok is None))
+                                                  and lang_tok is None),
+                           assistant=assistant)
             for i, c in enumerate(group):
                 segs = gen.segments[i]
                 toks = (np.concatenate([np.asarray(s["tokens"])

@@ -27,8 +27,8 @@ import os
 import numpy as np
 import torch
 
-from crisperwhisper_tpu.tokenizer.bpe import bytes_to_unicode
-from crisperwhisper_tpu.tokenizer.languages import LANGUAGE_CODES
+from .tokenizer.bpe import bytes_to_unicode
+from .tokenizer.languages import LANGUAGE_CODES
 
 from .config import SpecialTokens, WhisperArch
 
@@ -326,28 +326,39 @@ def tie_params(params, arch: WhisperArch):
                                   "layers": [lay0, *dec["layers"][1:]]}}
 
 
+def _fresh(ring: torch.Tensor, position: int, n: int) -> torch.Tensor:
+    """The fresh columns of a step: ring[:, :, :, position] (one per
+    stream), or with n > 1 the multi mode's [:, 0, :, position:+n] as
+    [L, n, H, ...]."""
+    if n == 1:
+        return ring[:, :, :, position]
+    return ring[:, 0, :, position:position + n].transpose(1, 2)
+
+
 def tie_column_error(params, arch: WhisperArch, x0: torch.Tensor,
-                     position: int, cache, plain: bool = False) -> int:
+                     position: int, cache, plain: bool = False,
+                     multi: bool = False) -> int:
     """Largest distance, in int8 steps, of layer 0's fresh K/V columns
     from the half-to-even rounding of ``tie_params``'s values (0 is the
     exact match it must give; a bf16 scale other than TIE_UNIT counts as
-    128). Runs ``whole_step`` (its plain version with ``plain``) on a
-    clone of ``cache``."""
+    128). Runs ``whole_step`` (its plain version with ``plain``; the
+    verify-block mode with ``multi``) on a clone of ``cache``."""
     from .ops.decode_step import whole_step, whole_step_plain
     tp = tie_params(params, arch)
     work = clone_cache(cache)
     (whole_step_plain if plain else whole_step)(tp, arch, x0, position,
-                                                work, (None,))
+                                                work, (None,), multi=multi)
     d = arch.d_model
+    n = x0.shape[0] if multi else 1
     b = tp["decoder"]["layers"][0]["self"]["qkv"]["b"].float().cpu()
     err = 0
     for i, name in enumerate(("self_k", "self_v")):
         want = torch.round(b[(i + 1) * d:(i + 2) * d] / TIE_UNIT)
-        got = getattr(work, name)[0, :, :, position].float().cpu()
+        got = _fresh(getattr(work, name), position, n)[0].float().cpu()
         err = max(err, int((got.reshape(got.shape[0], d) - want)
                            .abs().max()))
-        scale = getattr(work, name + "_scale")[0, :, :, position].float()
-        if not bool((scale == TIE_UNIT).all()):
+        scale = _fresh(getattr(work, name + "_scale"), position, n)[0]
+        if not bool((scale.float() == TIE_UNIT).all()):
             err = max(err, 128)
     return err
 
@@ -403,20 +414,24 @@ def clone_cache(cache):
 
 
 def decode_step_errors(params, arch: WhisperArch, x0: torch.Tensor,
-                       position: int, cache, heads) -> dict:
+                       position: int, cache, heads,
+                       multi: bool = False) -> dict:
     """The decode-step kernel (``whole_step``) against ``whole_step_plain``
     on clones of one cache: {name: (max error, band)} for hid, the logits
     of the serving head (``_lm_head``) on each, align and the fresh ring
-    columns (in int8 steps)."""
+    columns (in int8 steps; all M of them with ``multi``)."""
     from .ops.decode_step import _lm_head, whole_step, whole_step_plain
     kc, pc = clone_cache(cache), clone_cache(cache)
-    hid, align = whole_step(params, arch, x0, position, kc, heads)
-    rhid, ralign = whole_step_plain(params, arch, x0, position, pc, heads)
+    hid, align = whole_step(params, arch, x0, position, kc, heads,
+                            multi=multi)
+    rhid, ralign = whole_step_plain(params, arch, x0, position, pc, heads,
+                                    multi=multi)
     dec = params["decoder"]
     logits, rlogits = _lm_head(dec, hid), _lm_head(dec, rhid)
-    cols = max(int((getattr(kc, n)[:, :, :, position].int()
-                    - getattr(pc, n)[:, :, :, position].int())
-                   .abs().max()) for n in ("self_k", "self_v"))
+    n = x0.shape[0] if multi else 1
+    cols = max(int((_fresh(getattr(kc, name), position, n).int()
+                    - _fresh(getattr(pc, name), position, n).int())
+                   .abs().max()) for name in ("self_k", "self_v"))
     rel = STEP_REL_BAND
     head_rel = max(rel, torch.finfo(dec["tok_emb"].dtype).eps)
     return {
@@ -428,20 +443,78 @@ def decode_step_errors(params, arch: WhisperArch, x0: torch.Tensor,
         "columns": (cols, STEP_COLUMN_BAND)}
 
 
+def ring_write_inputs(arch: WhisperArch, rows: int, s: int, ring: int,
+                      kind: str, gen: torch.Generator
+                      ) -> tuple[list, torch.Tensor]:
+    """A verify block's ring writes at ``arch``'s width: (pairs of (ring
+    [L, rows, H, ring, *], block [rows, H, s, *]), per-row start slots
+    int32 [rows], distinct and in bounds). ``kind`` "bf16" gives bf16 K/V
+    rings; "int8" and "int4" (packed) give quantized rings with their bf16
+    scale rings, as models/whisper.init_cache lays them out."""
+    dev = gen.device
+    n, h, dh = (arch.decoder_layers, arch.decoder_attention_heads,
+                arch.head_dim)
+
+    def values(shape):
+        if kind == "bf16":
+            return torch.randn(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        if kind == "int4":
+            shape = shape[:-1] + (shape[-1] // 2,)
+            return torch.randint(0, 256, shape, generator=gen, device=dev,
+                                 dtype=torch.uint8)
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+    pairs = [(values((n, rows, h, ring, dh)), values((rows, h, s, dh)))
+             for _ in range(2)]
+    if kind != "bf16":
+        pairs += [(torch.rand((n, rows, h, ring), generator=gen, device=dev)
+                   .to(torch.bfloat16),
+                   torch.rand((rows, h, s), generator=gen, device=dev)
+                   .to(torch.bfloat16)) for _ in range(2)]
+    pos = torch.randint(0, ring - s + 1, (rows,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return pairs, pos
+
+
+def ring_write_library(pairs, li: int, positions: torch.Tensor) -> None:
+    """The same writes as one advanced-index assignment (``index_put_``)
+    per tensor: the library yardstick of the ring-write kernel."""
+    rows = torch.arange(positions.shape[0], device=positions.device)
+    for ring, blk in pairs:
+        slots = positions.long()[:, None] + torch.arange(
+            blk.shape[2], device=positions.device)[None, :]
+        ring[li, rows[:, None], :, slots] = blk.transpose(1, 2)
+
+
+def ring_write_error(pairs, li: int, positions: torch.Tensor) -> int:
+    """Bytes that differ between the ring-write kernel and its plain
+    version, each run on clones of the rings (0: bit-identical, as they
+    must be)."""
+    from .ops.ring_write import (write_block_columns_group,
+                                 write_block_columns_plain)
+    got = [(ring.clone(), blk) for ring, blk in pairs]
+    want = [(ring.clone(), blk) for ring, blk in pairs]
+    write_block_columns_group(got, li, positions)
+    write_block_columns_plain(want, li, positions.cpu())
+    return sum(int((g.view(torch.uint8) != w.view(torch.uint8)).sum())
+               for (g, _), (w, _) in zip(got, want))
+
+
 # ---------------------------------------------------------------------------
 # The TINY slice on two devices
 # ---------------------------------------------------------------------------
 
 
 def tiny_slice(ckpt: str, params, device: str, audio: np.ndarray,
-               quantize: bool | str = False
+               quantize: bool | str = False, assistant: str | None = None
                ) -> tuple[dict, list[np.ndarray]]:
     """The TINY f32 slice on ``device``: the pipeline's result for
     ``audio`` (word timestamps, adjust_pauses 0.12), and each 5 s chunk's
     tokens. ``quantize="serving"`` also turns on the whole-step decode
     kernel (``b1_decode_kernel``) with 24 new tokens per window, on
     ``params`` with random decoder biases and LayerNorms
-    (``random_affine``, seed 1)."""
+    (``random_affine``, seed 1). ``assistant`` is load_pipeline's."""
     from dataclasses import replace
     from .config import PipelineOptions
     from .hub import load_pipeline
@@ -452,7 +525,7 @@ def tiny_slice(ckpt: str, params, device: str, audio: np.ndarray,
         params = random_affine(params, 1)
     pipe = load_pipeline(ckpt, dtype=torch.float32, device=device,
                          params=to_device(params, device), pipe_opts=po,
-                         quantize=quantize)
+                         quantize=quantize, assistant=assistant)
     if quantize == "serving":
         pipe.gen_opts = replace(pipe.gen_opts, b1_decode_kernel=True,
                                 max_new_tokens=24)

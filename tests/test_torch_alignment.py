@@ -8,6 +8,8 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def cases():

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import torch
 
 from helpers import rand_mel
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_fixtures import (CHUNK_S, SR, TS_BAND, cache_from_jax,
                                  quantized_tiny, tone_audio,
                                  write_tiny_checkpoint, write_wav)
@@ -95,6 +96,94 @@ def test_rows_plain_matches_jax_kernel():
         toks = _assert_step(la, lb, aa, ab, jc, pc, i).astype(np.int32)
 
 
+def test_multi_plain_matches_jax_kernel():
+    """The verify-block mode (int4 cross cache, the serving layout): two
+    4-token blocks, at position 0 (the block's own columns alone in the
+    ring) and at 4 (after the first block's), on the JAX kernel in
+    interpret mode and on the port's plain version, with the bands of the
+    b1 mode: every row's argmax equal, logits within 1e-4, alignment rows
+    within 1e-5, the S fresh columns at most one int8 step apart, older
+    slots equal, scales within one bf16 step."""
+    from crisperwhisper_tpu.models import alignment_selector
+    from crisperwhisper_tpu.ops import pallas_decode_b1 as J
+    from crisperwhisper_tpu_torch.ops import decode_step as T
+    arch, jq, _, tq = quantized_tiny()
+    jc, pc = _caches(arch, jq, 1, jnp.int4)
+    sel = alignment_selector(arch, _SEL)
+    for pos, block in ((0, [17, 19, 23, 29]), (4, [31, 37, 41, 43])):
+        blk = np.asarray([block], np.int32)
+        la, jc, aa = J.decode_step_b1_multi(jq, arch, jnp.asarray(blk),
+                                            jnp.int32(pos), jc,
+                                            align_sel=jnp.asarray(sel),
+                                            interpret=True)
+        lb, pc, ab = T.decode_step_b1_multi(tq, arch, torch.from_numpy(blk),
+                                            pos, pc, align_sel=sel)
+        la = np.asarray(la)
+        assert la.shape == tuple(lb.shape) == (1, 4, arch.vocab_size)
+        assert (la.argmax(-1) == lb.numpy().argmax(-1)).all(), pos
+        np.testing.assert_allclose(lb.numpy(), la, atol=1e-4)
+        assert np.asarray(aa).shape == tuple(ab.shape)
+        np.testing.assert_allclose(ab.numpy(), np.asarray(aa), atol=1e-5)
+        ref = cache_from_jax(jc)
+        end = pos + 4
+        for name in ("self_k", "self_v"):
+            a = getattr(pc, name)[:, :, :, pos:end].int()
+            b = getattr(ref, name)[:, :, :, pos:end].int()
+            assert (a - b).abs().max() <= 1, (name, pos)
+            assert torch.equal(getattr(pc, name)[:, :, :, :pos],
+                               getattr(ref, name)[:, :, :, :pos])
+        for name in ("self_k_scale", "self_v_scale"):
+            torch.testing.assert_close(getattr(pc, name).float(),
+                                       getattr(ref, name).float(),
+                                       rtol=2 ** -7, atol=0)
+    assert T.whole_step.launches == 0              # CPU: the plain version
+
+
+def test_multi_at_one_token_equals_b1_bitwise():
+    """A one-token verify block is the b1 step, bit for bit: logits,
+    alignment rows, ring columns and scales."""
+    from crisperwhisper_tpu.models import alignment_selector
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.ops import decode_step as T
+    arch, jq, _, tq = quantized_tiny()
+    _, pc = _caches(arch, jq, 1, jnp.int4)
+    sel = alignment_selector(arch, _SEL)
+    for i, tok in enumerate((7, 11, 13)):
+        _, pc, _ = T.decode_step_b1(tq, arch, torch.tensor([tok]), i, pc)
+    c1, cm = testing.clone_cache(pc), testing.clone_cache(pc)
+    l1, c1, a1 = T.decode_step_b1(tq, arch, torch.tensor([17]), 3, c1,
+                                  align_sel=sel)
+    lm, cm, am = T.decode_step_b1_multi(tq, arch, torch.tensor([[17]]), 3,
+                                        cm, align_sel=sel)
+    assert torch.equal(lm[:, 0], l1) and torch.equal(am[:, :, 0], a1)
+    for name in ("self_k", "self_v", "self_k_scale", "self_v_scale"):
+        assert torch.equal(getattr(cm, name), getattr(c1, name)), name
+
+
+def test_multi_gate():
+    """supported_multi: the b1 gate for a [1, S] block with S <= 8 rows
+    whose S slots fit the ring."""
+    from crisperwhisper_tpu_torch.ops import decode_step as T
+    arch, jq, _, tq = quantized_tiny()
+    _, pc = _caches(arch, jq, 1, jnp.int8, ring=32)
+
+    def ok(tokens=torch.zeros((1, 5)), position=0, cache=pc, params=tq,
+           key_mask=None):
+        return T.supported_multi(params, arch, cache, key_mask, position,
+                                 tokens)
+    assert ok() and ok(torch.zeros((1, 8)), 24) and ok(torch.zeros((1, 1)))
+    assert not ok(torch.zeros((1, 9)))                    # 9 rows
+    assert not ok(position=28)                            # past the ring
+    assert not ok(torch.zeros((2, 5)))                    # two streams
+    assert not ok(torch.zeros(5))                         # not a block
+    assert not ok(position=torch.zeros(1, dtype=torch.int32))
+    assert not ok(key_mask=torch.ones((1, 32), dtype=torch.bool))
+    _, rows = _caches(arch, jq, 3, jnp.int8, ring=32)
+    assert not ok(cache=rows)
+    _, _, _, unfused = quantized_tiny(fused=False)
+    assert not ok(params=unfused)
+
+
 def test_bf16_alignment_capture_rounds():
     """align_dtype=bf16 rounds each captured probability to bf16, as the
     reference kernel does for its bf16 serving capture."""
@@ -129,6 +218,18 @@ def test_plain_rounds_ties_half_to_even(rows):
                      generator=torch.Generator().manual_seed(rows))
     assert testing.tie_column_error(tq, arch, x0, 5, pc, plain=True) == 0
     assert testing.tie_column_error(tq, arch, x0, 5, pc) == 0   # CPU: plain
+
+
+def test_plain_multi_rounds_ties_half_to_even():
+    """The same ties in the verify-block mode: all four fresh columns of
+    a 4-token block round half-to-even with the exact scale."""
+    from crisperwhisper_tpu_torch import testing
+    arch, jq, _, tq = quantized_tiny()
+    _, pc = _caches(arch, jq, 1, jnp.int4)
+    x0 = torch.randn((4, arch.d_model),
+                     generator=torch.Generator().manual_seed(4))
+    assert testing.tie_column_error(tq, arch, x0, 5, pc, plain=True,
+                                    multi=True) == 0
 
 
 def _gate_cases(arch, jq, tq, batch):
@@ -330,7 +431,7 @@ def test_cli_quantize_serving(serving, capsys):
     from crisperwhisper_tpu_torch.cli import main
     rc = main(["--f", serving["wav"], "--model", serving["ckpt"],
                "--chunk-length-s", str(CHUNK_S), "--json",
-               "--quantize", "serving"])
+               "--quantize", "serving", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()[-1]
     assert rc == 0, out
     result = json.loads(out)

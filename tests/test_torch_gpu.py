@@ -1,6 +1,6 @@
 """PyTorch port on the card: each kernel against its plain version, and
-the TINY slice (plain and quantized serving) on CUDA against the same
-slice on the CPU.
+the TINY slice (plain, quantized serving and speculative) on CUDA against
+the same slice on the CPU.
 
 The comparisons and their bands are crisperwhisper_tpu_torch.testing's,
 which chip_smoke.py runs too. Every test carries the ``gpu`` marker and
@@ -189,3 +189,85 @@ def test_tiny_serving_slice_on_card_matches_cpu(gen, tmp_path, seconds):
     gpu = testing.tiny_slice(ckpt, params, "cuda", audio, "serving")
     assert whole_step.launches > before
     assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND
+
+
+@pytest.mark.parametrize("kind,rows,s", [("bf16", 16, 5), ("int8", 3, 1),
+                                         ("int4", 16, 5), ("int8", 1, 8)])
+def test_ring_write_kernel_matches_plain_bitwise(gen, tiny_quant, kind, rows,
+                                                 s):
+    """One launch writes every pair (K, V and the scale rings of a
+    quantized ring) for every row; the rings equal the plain version's
+    byte for byte."""
+    from crisperwhisper_tpu_torch.ops.ring_write import \
+        write_block_columns_group
+    arch, _ = tiny_quant
+    pairs, pos = testing.ring_write_inputs(arch, rows, s, 40, kind, gen)
+    before = write_block_columns_group.launches
+    assert testing.ring_write_error(pairs, 1, pos) == 0
+    assert write_block_columns_group.launches == before + 1
+
+
+@pytest.mark.parametrize("s,cross,position", [(5, "int4", 30), (8, "int8", 0),
+                                              (3, "int4", 93)])
+def test_decode_step_multi_kernel_matches_plain(gen, tiny_quant, s, cross,
+                                                position):
+    """The verify-block mode (S rows of one stream): hid, logits,
+    alignment and all S fresh columns within testing's bands, ties
+    exact."""
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, 1, cross, 96, position, gen)
+    x0 = torch.randn((s, arch.d_model), generator=gen, device="cuda")
+    before = whole_step.mode_launches["multi"]
+    errs = testing.decode_step_errors(params, arch, x0, position, cache,
+                                      ((0, 1), (1, 3), (0, 2)), multi=True)
+    assert whole_step.mode_launches["multi"] == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+    assert testing.tie_column_error(params, arch, x0, position, cache,
+                                    multi=True) == 0
+
+
+def test_decode_step_multi_at_one_row_equals_b1(gen, tiny_quant):
+    """A one-row verify block runs the b1 mode's arithmetic: equal hid,
+    alignment and rings, bit for bit."""
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, 1, "int4", 96, 40, gen)
+    x0 = torch.randn((1, arch.d_model), generator=gen, device="cuda")
+    heads = ((0, 1), (1, 3))
+    a, b = testing.clone_cache(cache), testing.clone_cache(cache)
+    hid1, al1 = whole_step(params, arch, x0, 40, a, heads)
+    hidm, alm = whole_step(params, arch, x0, 40, b, heads, multi=True)
+    assert torch.equal(hid1, hidm) and torch.equal(al1, alm)
+    for name in ("self_k", "self_v", "self_k_scale", "self_v_scale"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("seconds,quantize,assistant", [
+    (12.0, False, "prompt_lookup"), (5.0, "serving", "self:1")])
+def test_tiny_assisted_slice_on_card(gen, tmp_path, seconds, quantize,
+                                     assistant):
+    """Speculative decoding on the card: at 4 windows (per-row positions,
+    the ring-write kernel) and at one serving window (the verify-block
+    kernel), the CPU's tokens and words, and greedy's on the card."""
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    from crisperwhisper_tpu_torch.ops.ring_write import \
+        write_block_columns_group
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    params = init_params(WhisperArch(**testing.TINY),
+                         torch.Generator().manual_seed(0))
+    audio = testing.tone_audio(seconds, 0)
+    cpu = testing.tiny_slice(ckpt, params, "cpu", audio, quantize, assistant)
+    greedy = testing.tiny_slice(ckpt, params, "cuda", audio, quantize)
+    before = (write_block_columns_group.launches,
+              whole_step.mode_launches["multi"])
+    gpu = testing.tiny_slice(ckpt, params, "cuda", audio, quantize, assistant)
+    after = (write_block_columns_group.launches,
+             whole_step.mode_launches["multi"])
+    kernel = 1 if quantize else 0       # the kernel this request reaches
+    assert after[kernel] > before[kernel]
+    assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND
+    assert testing.slice_timestamp_gap(greedy, gpu) <= testing.TS_BAND

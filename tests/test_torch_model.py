@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import torch
 
 from helpers import TINY_SPECIALS, rand_mel, tiny_arch
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_fixtures import tiny_state_dict
 
 

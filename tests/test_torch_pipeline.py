@@ -4,6 +4,7 @@ port's boundaries (unported options, verbatim copies)."""
 
 import inspect
 import json
+import os
 from dataclasses import replace
 
 import numpy as np
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 import torch
 
 from helpers import TINY_SPECIALS, rand_mel
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_fixtures import (CHUNK_S, TS_BAND, tone_audio,
                                  write_tiny_checkpoint, write_wav)
 
@@ -164,7 +166,7 @@ def test_cli_json_adjust_pauses(tiny, capsys):
     from crisperwhisper_tpu_torch.cli import main
     rc = main(["--f", tiny["wav"], "--model", tiny["ckpt"],
                "--chunk-length-s", str(CHUNK_S), "--json",
-               "--adjust-pauses", "0.12"])
+               "--adjust-pauses", "0.12", "--device", "cpu"])
     out = capsys.readouterr().out.strip().splitlines()[-1]
     assert rc == 0, out
     result = json.loads(out)
@@ -178,17 +180,41 @@ def test_cli_json_adjust_pauses(tiny, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num-beams", "4"], 11), (["--prompt", "hello"], 12),
-    (["--assistant", "prompt_lookup"], 13)])
+    (["--num-beams", "4"], 11), (["--prompt", "hello"], 12)])
 def test_cli_rejects_unported_flags(tiny, capsys, flags, item):
     from crisperwhisper_tpu_torch.cli import main
     assert main(["--f", tiny["wav"], "--model", tiny["ckpt"], *flags]) == 1
     assert f"item {item}" in capsys.readouterr().out
 
 
+def test_cli_assistant_prompt_lookup(tiny, capsys):
+    """--assistant prompt_lookup (formerly refused) transcribes, with the
+    plain CLI's JSON (the speculative path is exact)."""
+    from crisperwhisper_tpu_torch.cli import main
+    outs = []
+    for extra in ([], ["--assistant", "prompt_lookup"]):
+        rc = main(["--f", tiny["wav"], "--model", tiny["ckpt"],
+                   "--chunk-length-s", str(CHUNK_S), "--json",
+                   "--device", "cpu", *extra])
+        out = capsys.readouterr().out.strip().splitlines()[-1]
+        assert rc == 0, out
+        outs.append(json.loads(out))
+    assert outs[1] == outs[0] and len(outs[1]["chunks"]) > 0
+
+
+def test_cli_runs_on_the_card_by_default(tiny, capsys, monkeypatch):
+    """Without --device the CLI asks for CUDA; with no card it stops with
+    exit code 1 and says how to ask for the CPU."""
+    from crisperwhisper_tpu_torch.cli import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["--f", tiny["wav"], "--model", tiny["ckpt"]]) == 1
+    assert 'device="cpu"' in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("change", [
     {"num_beams": 2}, {"prompt_ids": (904, 5)},
-    {"condition_on_prev_tokens": True}, {"prompt_lookup": True}])
+    {"condition_on_prev_tokens": True},
+    {"num_beams": 3, "prompt_lookup": True}])
 def test_unported_options_raise(tiny, change):
     from crisperwhisper_tpu_torch.decoding.longform import generate
     tp = tiny["torch"]
@@ -198,11 +224,22 @@ def test_unported_options_raise(tiny, change):
                  replace(tp.gen_opts, **change), feats)
 
 
-@pytest.mark.parametrize("kw", [{"assistant": "prompt_lookup"}])
+@pytest.mark.parametrize("kw", [{"assistant": "draft:tiny"}])
 def test_load_pipeline_rejects_unported(tiny, kw):
+    """An assistant mode the reference does not have either ('prompt_lookup'
+    and 'self:K' are ported) is refused as the reference refuses it."""
     from crisperwhisper_tpu_torch.hub import load_pipeline
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(ValueError, match="unknown assistant mode"):
         load_pipeline(tiny["ckpt"], device="cpu", **kw)
+
+
+def test_load_pipeline_defaults_to_the_card(tiny, monkeypatch):
+    """device=None means CUDA: with no card load_pipeline raises and says
+    to pass device="cpu"."""
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        load_pipeline(tiny["ckpt"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -230,17 +267,62 @@ def test_build_prompt_matches_jax(kw):
      ["Chunk", "chunk_iter", "specials_from_tokenizer"]),
     ("crisperwhisper_tpu.hub", "crisperwhisper_tpu_torch.hub",
      ["resolve_checkpoint", "load_generation_options"]),
+    # whole modules the port carries as its own copies
+    *[(f"crisperwhisper_tpu.{m}", f"crisperwhisper_tpu_torch.{m}", None)
+      for m in ("config", "tokenizer", "tokenizer.bpe", "tokenizer.languages",
+                "tokenizer.whisper_tokenizer", "tokenizer.words",
+                "tokenizer.stitcher", "pipeline.pauses", "native_bindings")],
+    ("native/cwtpu.cpp", "crisperwhisper_tpu_torch/csrc/cwtpu.cpp", None),
 ])
 def test_verbatim_copies_match_originals(orig, port, names):
+    """Functions copied into port modules have the originals' source; a
+    module the port carries whole has the original's source apart from
+    its import statements (and, for native_bindings, the build path of
+    its library); the C++ helper is the same file byte for byte."""
     import importlib
+    if orig.endswith(".cpp"):
+        assert _read(port, "rb") == _read(orig, "rb")
+        return
+    if names is None:
+        assert _body(port) == _body(orig)
+        return
     a, b = importlib.import_module(orig), importlib.import_module(port)
     for name in names:
         assert inspect.getsource(getattr(b, name)) == \
             inspect.getsource(getattr(a, name)), name
 
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the native helper's library path and build step, the one place where the
+# port's copy differs from the original (it builds under the port's _build/)
+_BUILD_PATH = {"_NATIVE_DIR", "_SO_PATH", "_SRC_PATH", "_build"}
+
+
+def _read(rel: str, mode: str = "r"):
+    with open(os.path.join(_REPO, rel), mode) as f:
+        return f.read()
+
+
+def _body(module: str) -> list[str]:
+    """A module's source lines without its import statements and its
+    native build path."""
+    import ast
+    rel = module.replace(".", "/")
+    if os.path.isdir(os.path.join(_REPO, rel)):
+        rel += "/__init__"
+    src = _read(rel + ".py")
+    cut = set()
+    for node in ast.walk(ast.parse(src)):
+        names = ({t.id for t in node.targets if isinstance(t, ast.Name)}
+                 if isinstance(node, ast.Assign) else
+                 {node.name} if isinstance(node, ast.FunctionDef) else set())
+        if isinstance(node, (ast.Import, ast.ImportFrom)) or \
+                (names & _BUILD_PATH and node.col_offset == 0):
+            cut.update(range(node.lineno - 1, node.end_lineno))
+    return [ln for i, ln in enumerate(src.splitlines()) if i not in cut]
+
+
 def _dir_bytes(path):
-    import os
     return {name: open(os.path.join(path, name), "rb").read()
             for name in sorted(os.listdir(path)) if not name.startswith(".")}
 
@@ -252,7 +334,9 @@ def test_testing_tiny_matches_test_fixtures(tmp_path):
     from crisperwhisper_tpu_torch import testing
     from vocab_fixture import build_model_vocab_dir
     from torch_port_fixtures import write_tiny_checkpoint
-    assert testing.TINY == TINY and testing.TINY_SPECIALS == TINY_SPECIALS
+    from torch_port_fixtures import port_config
+    assert testing.TINY == TINY
+    assert testing.TINY_SPECIALS == port_config(TINY_SPECIALS)
     ours = _dir_bytes(testing.write_tiny_configs(str(tmp_path / "a")))
     theirs = _dir_bytes(write_tiny_checkpoint(str(tmp_path / "b")))
     theirs.pop("model.safetensors")
@@ -265,7 +349,6 @@ def test_testing_tiny_matches_test_fixtures(tmp_path):
 def test_testing_large_v3_matches_bench_checkpoint(tmp_path):
     """write_large_v3_configs writes the files of
     scripts/make_bench_ckpt.py ensure_bench_checkpoint (no weights)."""
-    import os
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))), "scripts"))

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import torch
 
 from helpers import rand_mel
+from torch_port_fixtures import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_fixtures import cache_from_jax, quantized_tiny, to_torch
 
 _DENSES = (("self", "qkv"), ("self", "o"), ("cross", "q"), ("cross", "k"),

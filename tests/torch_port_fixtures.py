@@ -9,10 +9,26 @@ which chip_smoke.py uses too.
 
 import os
 
+import pytest
+
 from crisperwhisper_tpu_torch.testing import (CHUNK_S, SR, TS_BAND,  # noqa: F401
                                               tone_audio, write_tiny_configs,
                                               write_wav)
 from helpers import state_dict_numpy, torch_tiny_model
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """PyTorch on one CPU thread for the tests of a module that imports
+    this fixture, restored after them. The port's CPU tests run many tiny
+    eager ops; while other pytest workers share the cores, the default
+    team of one thread per core makes each op wait for descheduled
+    threads, and a pipeline test runs tens of times slower."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tiny_state_dict() -> dict:
@@ -28,6 +44,17 @@ def write_tiny_checkpoint(path: str) -> str:
           for k, v in tiny_state_dict().items() if k != "proj_out.weight"}
     save_file(sd, os.path.join(path, "model.safetensors"))
     return path
+
+
+def port_config(obj):
+    """A JAX package config dataclass (SpecialTokens, GenerationOptions,
+    ...) as the port's class of the same name and fields, for tests that
+    compare or replace it on the port's side; the port only reads fields
+    and never converts."""
+    from dataclasses import fields
+    from crisperwhisper_tpu_torch import config
+    cls = getattr(config, type(obj).__name__)
+    return cls(**{f.name: getattr(obj, f.name) for f in fields(obj)})
 
 
 def to_torch(a):
