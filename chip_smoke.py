@@ -20,7 +20,10 @@ Phases, one line each on stdout:
      fresh column alone in the ring), untimed; in each case also fresh
      columns placed on the int8 rounding's ties; the verify-block (multi)
      mode at M = 5 with the same checks, timed beside the b1 mode, and
-     at M = 1, where it must equal the b1 mode bit for bit; the
+     at M = 1, where it must equal the b1 mode bit for bit; the beams
+     mode at R = 5 (per-row rings, one int4 cross cache of batch 1) with
+     the same checks, bit for bit equal to the rows mode on the cross
+     cache repeated per row, timed beside b1 and rows at M = 4; the
      ring-write kernel at large-v3 width, batch 16, 5 columns a row, for
      bf16, int8 (with scales) and packed int4 rings, bit-identical to its
      plain version, timed per call and, replayed from a CUDA graph, on
@@ -34,7 +37,11 @@ Phases, one line each on stdout:
      decode-step kernel, one window (batch 1) and four (rows); then the
      speculative slice (prompt lookup over four windows: the ring-write
      kernel; self:1 on one serving window: the verify-block kernel),
-     equal to the CPU and to greedy on the card;
+     equal to the CPU and to greedy on the card; the beam slice
+     (num_beams=4) equal to the CPU, and on one serving window with
+     b1_decode_kernel (the beams mode, token agreement with the CPU at
+     least 0.9); the prompting slice (prompt= text with
+     condition_on_prev_tokens) equal to the CPU;
   4. the full large-v3 geometry with random bf16 weights built on the
      card: load_pipeline answers a 60 s WAV file and a 12 s array with
      word timestamps and adjust_pauses=0.12; every kernel's launch count
@@ -53,9 +60,20 @@ Phases, one line each on stdout:
      speculatively with every count reset just before and read just
      after; it prints both walls, the acceptance rate, the token agreement
      with greedy (at least 0.9, the reference's band) and the launches by
-     kernel and mode.
+     kernel and mode;
+  7. beams and prompts at large-v3 geometry: (a) num_beams=5 on the
+     default path on the 60 s WAV (3 windows, one cross cache per item),
+     (b) quantize="serving" with b1_decode_kernel and num_beams=5 on the
+     12 s array (batch 1: the beams mode); the same request on f32 weights
+     must agree with itself without b1_decode_kernel to at least 0.9 (the
+     reference's band, set where both sides run f32 activations), and the
+     agreements at bf16, where the plain step rounds its activations, are
+     printed beside it, (c)
+     pipe(audio, prompt=...) on the 12 s array. Each prints its wall
+     beside the greedy wall of the same request and the launches by
+     kernel and mode (counts reset just before each request).
 Then a JSON line with one entry per kernel (launches: phase 4 for the
-first three, phases 5 and 6 for the decode step, phase 6 (a) for the
+first three, phases 5, 6 and 7 for the decode step, phase 6 (a) for the
 ring write), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -351,6 +369,8 @@ def phase2_kernels(large) -> list[dict]:
         print(line + f"; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
               f"quantized decode_step {step_ms:.3f} ms, bound "
               f"{bound:.4f} ms ({by})", flush=True)
+        if rows == 4:
+            rows_ms = ms
         if len(entries) == 3:           # the batch-1 serving case
             b1_ms = ms
             entries.append({
@@ -400,6 +420,40 @@ def phase2_kernels(large) -> list[dict]:
     print("phase 2 decode_step multi: M=1 equals the b1 mode bit for bit",
           flush=True)
     del work, cache, a, c
+
+    # --- the beams mode: 5 beams of one item at 60, per-row rings, one
+    # int4 cross cache
+    cache = testing.random_step_cache(arch, 5, "int4", 128, 60, gen,
+                                      shared_cross=True)
+    tok = torch.randint(0, arch.vocab_size, (5,), generator=gen, device=dev)
+    x0 = (dec["tok_emb"][tok].float()
+          + dec["pos_emb"][60][None].float()).contiguous()
+    errs = testing.decode_step_errors(qparams, arch, x0, 60, cache,
+                                      tuple(heads), beams=True)
+    errs["ties"] = (testing.tie_column_error(qparams, arch, x0, 60, cache,
+                                             beams=True), 0)
+    for name, (err, band) in errs.items():
+        _require(err <= band, f"decode step beams R=5: {name} max err "
+                              f"{err} > {band}")
+    differ = testing.beams_rows_mismatch(qparams, arch, x0, 60, cache,
+                                         tuple(heads))
+    _require(not differ, f"decode step beams R=5 differs from the rows mode "
+                         f"on the repeated cross cache in {differ}")
+    work = testing.clone_cache(cache)
+    ms = _time_ms(lambda: ds.whole_step(qparams, arch, x0, 60, work,
+                                        tuple(heads), beams=True), 20)
+    plain_ms = _time_ms(lambda: ds.whole_step_plain(
+        qparams, arch, x0, 60, work, tuple(heads), beams=True), 3)
+    bound, by = _bound(*_step_work(qparams, arch, cache, 60, 5, False,
+                                   len(heads)), "f32")
+    print("phase 2 decode_step beams: R=5, int4 cross of batch 1, rings 128 "
+          "at 60: " + ", ".join(f"{k} err {e:.3g} (band {b:.3g})"
+                                for k, (e, b) in errs.items())
+          + f"; equals the rows mode on the repeated cross cache bit for "
+          f"bit; kernel {ms:.3f} ms (b1 {b1_ms:.3f} ms, rows M=4 "
+          f"{rows_ms:.3f} ms) vs plain {plain_ms:.3f} ms, bound "
+          f"{bound:.4f} ms ({by})", flush=True)
+    del work, cache
 
     # --- kernel 6: the per-row ring writes of a verify block, batch 16
     from crisperwhisper_tpu_torch.ops import ring_write as rw
@@ -509,6 +563,38 @@ def phase3_tiny(tmp: str) -> None:
               f"== CPU == greedy on CUDA, ring-write launches "
               f"{launched[0]}, decode-step multi launches {launched[1]}, "
               f"max timestamp diff {gap:.4f} s", flush=True)
+
+    # beam search and the prompting paths
+    clip = testing.tone_audio(12.0, 0)
+    for label, kw in (("beam (num_beams=4)", dict(num_beams=4)),
+                      ("prompting (prompt=, condition_on_prev_tokens)",
+                       dict(prompt="hello world"))):
+        cpu = testing.tiny_slice(ckpt, params, "cpu", clip, **kw)
+        gpu = testing.tiny_slice(ckpt, params, "cuda", clip, **kw)
+        try:
+            gap = testing.slice_timestamp_gap(cpu, gpu)
+        except AssertionError as e:
+            raise SmokeError(f"tiny {label} slice, CUDA against CPU: {e}"
+                             ) from e
+        _require(gap <= testing.TS_BAND,
+                 f"tiny {label} slice: timestamps differ by {gap}")
+        print(f"phase 3 ok: tiny {label} slice, CUDA == CPU over "
+              f"{len(cpu[1])} chunks ({sum(t.shape[1] for t in cpu[1])} "
+              f"tokens), max timestamp diff {gap:.4f} s", flush=True)
+    clip = testing.tone_audio(5.0, 0)
+    cpu = testing.tiny_slice(ckpt, params, "cpu", clip, "serving",
+                             num_beams=4)
+    before = ds.whole_step.mode_launches["beams"]
+    gpu = testing.tiny_slice(ckpt, params, "cuda", clip, "serving",
+                             num_beams=4)
+    launched = ds.whole_step.mode_launches["beams"] - before
+    _require(launched > 0, "tiny serving beams: no beams-mode launch")
+    agree = testing.token_agreement(cpu[1], gpu[1])
+    _require(agree >= 0.9, f"tiny serving beams: token agreement with the "
+                           f"CPU {agree}")
+    print(f"phase 3 ok: tiny serving beam slice (num_beams=4, 5 s, batch "
+          f"1), {launched} decode-step beams launches, token agreement with "
+          f"the CPU {agree:.3f}", flush=True)
 
 
 def _check_results(requests, results) -> None:
@@ -673,21 +759,11 @@ def phase5_serving(tmp: str, large) -> int:
     return total
 
 
-def _agreement(ref: list, got: list) -> float:
-    """Token agreement of two runs' chunk tokens over the shorter of the
-    two streams (the reference's measure, tests/test_b1_kernel.py:94)."""
-    import numpy as np
-    r = np.concatenate([np.asarray(t).reshape(-1) for t in ref])
-    g = np.concatenate([np.asarray(t).reshape(-1) for t in got])
-    n = min(len(r), len(g))
-    return float((r[:n] == g[:n]).mean()) if n else 0.0
-
-
 def phase6_speculative(tmp: str, large) -> dict[str, int]:
     """Speculative decoding at large-v3 geometry, three requests, each
     after a greedy run of the same request. Returns the launches of the
     speculative runs: ring_write of (a), decode_step of (b) and (c)."""
-    import torch
+    from crisperwhisper_tpu_torch import testing
     from crisperwhisper_tpu_torch.decoding import assisted
     from crisperwhisper_tpu_torch.hub import load_pipeline
 
@@ -716,30 +792,15 @@ def phase6_speculative(tmp: str, large) -> dict[str, int]:
                 counts: dict = {}
                 assisted.assisted_decode = (
                     lambda *a, _c=counts, **kw: real(*a, counts=_c, **kw))
-                toks = []
-                inner = pipe._run_chunks
-
-                def spy(*a, _inner=inner, _toks=toks, **kw):
-                    out = _inner(*a, **kw)
-                    _toks.extend(o["tokens"] for o in out)
-                    return out
-                pipe._run_chunks = spy
-                _reset_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = pipe(req, return_timestamps="word",
-                           adjust_pauses_threshold=0.12)
-                torch.cuda.synchronize()
-                runs[name] = (time.perf_counter() - t0, toks, _counts(),
-                              counts, res)
-                del pipe._run_chunks
+                wall, toks, launches, res = _request(pipe, req)
+                runs[name] = (wall, toks, launches, counts, res)
             wall, toks, launches, counts, res = runs["assisted"]
             _check_results([(req, dur)], [res])
             for name in ("encoder_attention", "align_prep", "dtw", *needs):
                 _require(launches[name] > 0,
                          f"speculative ({label}) {assistant}: kernel "
                          f"{name} was not launched")
-            agree = _agreement(runs["greedy"][1], toks)
+            agree = testing.token_agreement(runs["greedy"][1], toks)
             _require(agree >= 0.9, f"speculative ({label}) {assistant}: "
                                    f"token agreement with greedy {agree}")
             rate = counts.get("accepted", 0) / max(counts.get("drafts", 0), 1)
@@ -757,6 +818,107 @@ def phase6_speculative(tmp: str, large) -> dict[str, int]:
     print("phase 6 ok: large-v3 speculative decoding; " + "; ".join(lines),
           flush=True)
     return totals
+
+
+def _request(pipe, req, prompt=None):
+    """One timed request with every launch count reset just before: (wall
+    seconds, each chunk's tokens, launches by kernel, the result)."""
+    import torch
+    toks = []
+    inner = pipe._run_chunks
+
+    def spy(*a, **kw):
+        out = inner(*a, **kw)
+        toks.extend(o["tokens"] for o in out)
+        return out
+    pipe._run_chunks = spy
+    try:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe(req, return_timestamps="word",
+                   adjust_pauses_threshold=0.12, prompt=prompt)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, toks, _counts(), res
+    finally:
+        del pipe._run_chunks
+
+
+def phase7_beams_prompts(tmp: str, large) -> int:
+    """Beam search and a text prompt at large-v3 geometry, each request
+    after a greedy run of itself. Returns the decode-step kernel's
+    launches in (b)'s timed request (the beams mode)."""
+    import torch
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+
+    arch, params = large
+    wav, arr = _large_requests(tmp)
+    prompt = "hello world, transcribe every um and uh"
+    cases = (("a", False, 5, wav, None, ()),
+             ("b", "serving", 5, arr, None, ("decode_step_beams",)),
+             ("c", False, 1, arr, prompt, ()))
+    total = 0
+    for label, quantize, beams, (req, dur), text, needs in cases:
+        pipe = load_pipeline(_large_ckpt(tmp, arch), params=params,
+                             device="cuda", language="en", quantize=quantize)
+        base = replace(pipe.gen_opts, temperatures=(0.0,), max_new_tokens=96,
+                       force_unique_generate_call=True,
+                       b1_decode_kernel=bool(quantize))
+        pipe.gen_opts = base
+        greedy_wall, greedy_toks, _, _ = _request(pipe, req)
+        pipe.gen_opts = replace(base, num_beams=beams)
+        wall, toks, launches, res = _request(pipe, req, text)
+        _check_results([(req, dur)], [res])
+        for name in ("encoder_attention", "align_prep", "dtw", *needs):
+            _require(launches[name] > 0, f"beams/prompt ({label}): kernel "
+                                         f"{name} was not launched")
+        extra = ""
+        if quantize:
+            _require(launches["decode_step"] == launches["decode_step_beams"],
+                     f"beams ({label}): steps by mode {launches}, expected "
+                     "beams only")
+            # the same requests on the plain step (bf16 activations, where
+            # the kernel keeps an f32 residual stream): for the record
+            pipe.gen_opts = replace(base, num_beams=beams,
+                                    b1_decode_kernel=False)
+            plain_wall, plain_toks, _, _ = _request(pipe, req)
+            pipe.gen_opts = replace(base, b1_decode_kernel=False)
+            greedy_plain = _request(pipe, req)[1]
+            # the band: f32 activations on both sides, the kernel's own
+            # arithmetic, as the reference holds it (test_b1_kernel.py:336)
+            p32 = load_pipeline(_large_ckpt(tmp, arch),
+                                params=testing.to_device(params,
+                                                         torch.float32),
+                                device="cuda", language="en",
+                                quantize=quantize)
+            p32.gen_opts = replace(base, num_beams=beams)
+            _, k32, l32, _ = _request(p32, req)
+            _require(l32["decode_step_beams"] > 0,
+                     f"beams ({label}) f32: no beams-mode launch")
+            p32.gen_opts = replace(base, num_beams=beams,
+                                   b1_decode_kernel=False)
+            n32 = _request(p32, req)[1]
+            del p32
+            torch.cuda.empty_cache()
+            agree = testing.token_agreement(n32, k32)
+            _require(agree >= 0.9, f"beams ({label}): token agreement with "
+                                   f"the plain step at f32 {agree}")
+            bf16 = testing.token_agreement(plain_toks, toks)
+            bf16_greedy = testing.token_agreement(greedy_plain, greedy_toks)
+            extra = (f", without b1_decode_kernel {plain_wall:.2f} s; token "
+                     f"agreement with the plain step {agree:.3f} at f32 "
+                     f"activations, at bf16 {bf16:.3f} (greedy at bf16 "
+                     f"{bf16_greedy:.3f})")
+        total += launches["decode_step"]
+        what = (f"num_beams={beams}" if beams > 1 else f"prompt={text!r}")
+        kind = "serving" if quantize else "bf16"
+        print(f"phase 7 ({label}): large-v3 {kind} {what} {dur:.0f} s: "
+              f"{wall:.2f} s wall (greedy "
+              f"{greedy_wall:.2f} s{extra}), {len(res['chunks'])} words, "
+              f"launches {launches}", flush=True)
+    print("phase 7 ok: large-v3 beams and prompts", flush=True)
+    return total
 
 
 def _large_params():
@@ -795,6 +957,7 @@ def main() -> int:
             launches = phase4_large(tmp, large)
             launches["decode_step"] = phase5_serving(tmp, large)
             spec = phase6_speculative(tmp, large)
+            launches["decode_step"] += phase7_beams_prompts(tmp, large)
         launches["decode_step"] += spec["decode_step"]
         launches["ring_write"] = spec["ring_write"]
         _require(not any(m.split(".")[0] in ("jax", "crisperwhisper_tpu")

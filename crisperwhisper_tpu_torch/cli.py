@@ -4,16 +4,16 @@ Usage:
     python -m crisperwhisper_tpu_torch.cli --f audio.wav --model /path/ckpt \\
         [--language en] [--batch-size 16] [--chunk-length-s 30] \\
         [--timestamps word] [--adjust-pauses 0.12] [--json] \\
+        [--num-beams N] [--prompt TEXT] \\
         [--quantize none|int8|serving] [--assistant prompt_lookup|self:K] \\
         [--device cuda|cpu]
 
 The flags are those of crisperwhisper_tpu.cli, and ``--device``: the model
 runs on the CUDA card unless ``--device cpu`` asks for the CPU (the
-counterpart of the reference's JAX_PLATFORMS). ``--quantize`` loads the
-quantized decoder and ``--assistant`` decodes speculatively (the
-``quantize`` and ``assistant`` of hub.load_pipeline). Options outside the
-port's slice (--num-beams > 1, --prompt) stop with a message and exit
-code 1.
+counterpart of the reference's JAX_PLATFORMS). ``--num-beams`` decodes
+with beam search, ``--prompt`` biases the decoder with a text prompt,
+``--quantize`` loads the quantized decoder and ``--assistant`` decodes
+speculatively (the ``quantize`` and ``assistant`` of hub.load_pipeline).
 """
 
 from __future__ import annotations
@@ -22,13 +22,6 @@ import argparse
 import json
 import os
 import sys
-
-# flag -> (is it outside the slice?, ROADMAP queue-1 item)
-_UNPORTED = {
-    "--num-beams": (lambda a: a.num_beams > 1, 11),
-    "--prompt": (lambda a: a.prompt is not None, 12),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Transcribe an audio file.")
@@ -51,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "with an int8 cross cache (int8), or with an int4 "
                         "cross cache and an int8 self ring (serving)")
     p.add_argument("--prompt", type=str, default=None,
-                   help="Domain-vocabulary bias text (not ported yet)")
+                   help="Domain-vocabulary bias text (tokenized via "
+                        "get_prompt_ids; the reference's prompt_ids)")
     p.add_argument("--assistant", type=str, default=None, metavar="MODE",
                    help="Speculative decoding: 'prompt_lookup' or "
                         "'self:K' (layer-truncated self-draft)")
@@ -65,15 +59,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, (used, item) in _UNPORTED.items():
-        if used(args):
-            print(f"Error: {flag} is not supported by the PyTorch port yet "
-                  f"(ROADMAP queue 1, item {item}).")
-            return 1
     if not os.path.exists(args.f):
         print(f"Error: The file '{args.f}' does not exist.")
         return 1
     try:
+        from dataclasses import replace
+
         from .config import PipelineOptions
 
         from .hub import load_pipeline
@@ -87,8 +78,11 @@ def main(argv=None) -> int:
             pipe_opts=PipelineOptions(chunk_length_s=args.chunk_length_s,
                                       batch_size=args.batch_size,
                                       return_timestamps=rt))
+        if args.num_beams > 1:
+            pipe.gen_opts = replace(pipe.gen_opts, num_beams=args.num_beams)
         result = pipe(args.f, return_timestamps=rt,
-                      adjust_pauses_threshold=args.adjust_pauses)
+                      adjust_pauses_threshold=args.adjust_pauses,
+                      prompt=args.prompt)
         if args.json:
             print(json.dumps(result, default=float))
         else:

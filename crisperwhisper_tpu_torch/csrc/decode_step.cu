@@ -1,10 +1,11 @@
 // One quantized decoder step over all layers in one cooperative launch.
 //
 // Replaces the TPU kernel crisperwhisper_tpu/ops/pallas_decode_b1.py
-// (_kernel, reached from decode_step_b1, decode_step_b1_multi and
-// decode_step_rows through _run_kernel and _call_kernel). That kernel walked
-// a (layer, phase) grid in order on one TPU core, streamed each int8 weight
-// tile through VMEM and carried the residual stream in VMEM scratch.
+// (_kernel, reached from decode_step_b1, decode_step_b1_multi,
+// decode_step_b1_beams and decode_step_rows through _run_kernel and
+// _call_kernel). That kernel walked a (layer, phase) grid in order on one
+// TPU core, streamed each int8 weight tile through VMEM and carried the
+// residual stream in VMEM scratch.
 //
 // What bounds it on the H100: the weight stream. At large-v3 a step reads
 // 32 x (3d + 3d + f + f) x d = 32 x 22.9 MB = 734 MB of int8 weights, plus
@@ -43,7 +44,11 @@
 // the fresh columns of rows j < i of the same head: one block per head takes
 // all M rows, writes their M columns at [pos, pos + M) and, after a block
 // barrier, runs the M attention rows one after another. At M = 1 the multi
-// mode runs exactly the b1 mode's arithmetic.
+// mode runs exactly the b1 mode's arithmetic. With `cross_shared` (the
+// beams mode, decode_step_b1_beams) the M rows are M beams of one item: the
+// rows mode with every row reading the cross cache of stream 0, so the
+// cross cache is held once per item, not once per beam. The rings stay per
+// row. The multi mode shares the cross cache too.
 //
 // Numerics are the reference kernel's: f32 everywhere, the dense epilogue
 // acc * scale + bias with bf16 scales read as f32, the cross-q scale and
@@ -81,9 +86,10 @@ struct Step {
   int8_t* ring_v;
   __nv_bfloat16* ring_ks;  // [L, R, H, T]
   __nv_bfloat16* ring_vs;
-  const uint8_t* cross_k;  // [L, R, H, K, Dh] int8 or [.., Dh/2] int4 pairs
+  const uint8_t* cross_k;  // [L, C, H, K, Dh] int8 or [.., Dh/2] int4 pairs,
+                           // C = 1 with cross_shared, else R
   const uint8_t* cross_v;
-  const __nv_bfloat16* cross_ks;  // [L, R, H, K]
+  const __nv_bfloat16* cross_ks;  // [L, C, H, K]
   const __nv_bfloat16* cross_vs;
   const int* align_lh;     // [A, 2] (layer, head) per alignment slot
   float* align;            // [M, A, K], zeroed by the caller
@@ -91,6 +97,7 @@ struct Step {
       align_bf16;
   int multi;               // 1: the M rows are consecutive tokens of one
                            // stream (shared ring and cross cache)
+  int cross_shared;        // 1: every row reads the cross cache of stream 0
   float qscale;            // head_dim**-0.5
 };
 
@@ -378,11 +385,11 @@ __device__ void cross_attention(const Step& s, int layer, float* smem,
   float* q = smem;
   float* sc = smem + 64;
   float* part = sc + (s.t_ring > K ? s.t_ring : K);
-  const int streams = s.multi ? 1 : M;
+  const int streams = s.cross_shared ? 1 : M;
   for (int item = blockIdx.x; item < M * H; item += gridDim.x) {
     const int m = item / H, hh = item % H;
     const size_t base =
-        ((size_t)layer * streams + (s.multi ? 0 : m)) * H + hh;
+        ((size_t)layer * streams + (s.cross_shared ? 0 : m)) * H + hh;
     const uint8_t* ck = s.cross_k + base * K * rb;
     const uint8_t* cv = s.cross_v + base * K * rb;
     const __nv_bfloat16* cks = s.cross_ks + base * K;
@@ -477,7 +484,9 @@ cudaError_t launch(const Step& s, size_t smem, cudaStream_t stream) {
 // One decoder step; see the note above. hid holds x0 on entry (M rows); the
 // rings take the fresh columns in place; align [M, A, K] must be zeroed.
 // multi = 1 takes the M rows as tokens pos .. pos+M-1 of one stream, whose
-// ring and cross cache have batch 1. Returns a cudaError_t (0 = launched).
+// ring and cross cache have batch 1; cross_shared = 1 (implied by multi)
+// gives the cross cache batch 1 under M per-row rings (the beams mode).
+// Returns a cudaError_t (0 = launched).
 extern "C" int cw_decode_step(
     const void* w_ptrs, const void* vec, void* hid, void* scratch,
     void* ring_k, void* ring_v, void* ring_ks, void* ring_vs,
@@ -485,7 +494,7 @@ extern "C" int cw_decode_step(
     const void* cross_vs, const void* align_lh, void* align, int m,
     int n_layers, int d, int f, int h, int dh, int t_ring, int pos,
     int k_enc, int n_align, int cross_int4, int align_bf16, int multi,
-    float qscale, void* stream) {
+    int cross_shared, float qscale, void* stream) {
   if (m < 1 || m > 8 || n_layers < 1 || h < 1 || d != h * dh ||
       (dh != 16 && dh != 32 && dh != 64) || d % 16 != 0 || f % 16 != 0 ||
       pos < 0 || pos + (multi ? m : 1) > t_ring || k_enc < 1 || n_align < 1)
@@ -527,6 +536,7 @@ extern "C" int cw_decode_step(
   s.cross_int4 = cross_int4;
   s.align_bf16 = align_bf16;
   s.multi = multi != 0;
+  s.cross_shared = multi != 0 || cross_shared != 0;
   s.qscale = qscale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

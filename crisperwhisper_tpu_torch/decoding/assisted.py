@@ -40,7 +40,7 @@ from ..config import GenerationOptions, SpecialTokens, WhisperArch
 from ..models.whisper import (INT4, INT8, decode_step, decode_step_multi,
                               init_cache)
 from ..ops import decode_step as step_kernel
-from .greedy import DecodeResult, _no_speech_prob
+from .greedy import DecodeResult, _device, _key_mask, _no_speech_prob
 from .processors import TimestampState, process_scores
 
 
@@ -136,10 +136,14 @@ def assisted_decode(params: Any, arch: WhisperArch,
                     cross_cache_dtype: str | None = None,
                     self_cache_dtype: str | None = None,
                     sot_position: int = 0,
+                    prompt_mask: np.ndarray | torch.Tensor | None = None,
+                    pos_offset: np.ndarray | torch.Tensor | None = None,
                     draft_script: torch.Tensor | None = None,
                     counts: dict | None = None) -> DecodeResult:
     """Greedy decode of ``prompt`` [B, P] against ``encoder_out`` with
     speculation; the arguments and the result are ``greedy_decode``'s.
+    ``prompt_mask`` and ``pos_offset`` reach the draft chain and the
+    verify block alike (assisted.py:134-138 of the reference).
     draft_params None: ``draft_script`` int [B, >= P + max_new] (the
     candidate for token slot t is draft_script[b, t]) or, without one,
     prompt lookup. A real draft runs on ``draft_encoder_out``.
@@ -172,8 +176,11 @@ def assisted_decode(params: Any, arch: WhisperArch,
     # the draft chain runs on the batch-1 kernel when the draft's weights
     # are fused and quantized (a self-draft of quantized weights is); its
     # numerics move only the acceptance rate
+    key_mask = _key_mask(prompt_mask, max_new_tokens + s, dev)
+    pos_offset = _device(pos_offset, dev)
+    plain = key_mask is None and pos_offset is None
     draft_quant = (use_draft_model and b == 1 and opts.b1_decode_kernel
-                   and cross_cache_dtype in (INT8, INT4)
+                   and plain and cross_cache_dtype in (INT8, INT4)
                    and _quantized_fused(draft_params))
     draft_cache = None
     if use_draft_model:
@@ -186,11 +193,13 @@ def assisted_decode(params: Any, arch: WhisperArch,
     prompt = prompt.to(device=dev, dtype=torch.long)
     no_speech = torch.zeros((b,), dtype=torch.float32, device=dev)
     if p > 1:
-        pre_logits, cache, _ = decode_step_multi(params, arch,
-                                                 prompt[:, :p - 1], 0, cache)
+        pre_logits, cache, _ = decode_step_multi(
+            params, arch, prompt[:, :p - 1], 0, cache, key_mask=key_mask,
+            pos_offset=pos_offset)
         if use_draft_model:
             decode_step_multi(draft_params, draft_arch, prompt[:, :p - 1], 0,
-                              draft_cache)
+                              draft_cache, key_mask=key_mask,
+                              pos_offset=pos_offset)
         if sot_position <= p - 2:
             no_speech = _no_speech_prob(pre_logits[:, sot_position],
                                         specials.no_speech)
@@ -209,9 +218,9 @@ def assisted_decode(params: Any, arch: WhisperArch,
     # the whole-step kernel for the verify block at batch 1, decided once
     # (the reference's gate, assisted.py:256-263)
     block0 = torch.zeros((1, s), dtype=torch.long)
-    use_b1_kernel = (opts.b1_decode_kernel and b == 1
+    use_b1_kernel = (opts.b1_decode_kernel and b == 1 and plain
                      and step_kernel.supported_multi(params, arch, cache,
-                                                     None, 0, block0))
+                                                     key_mask, 0, block0))
     use_b1_draft_kernel = (use_b1_kernel and draft_quant
                            and step_kernel.supported(
                                draft_params, draft_arch, draft_cache, None,
@@ -242,7 +251,8 @@ def assisted_decode(params: Any, arch: WhisperArch,
                 else:
                     lgt, _, _ = decode_step(draft_params, draft_arch, tok,
                                             at(lengths_h - 1 + i),
-                                            draft_cache)
+                                            draft_cache, key_mask=key_mask,
+                                            pos_offset=pos_offset)
                 tok = proc(lgt, dstate).argmax(dim=-1)
                 dstate = dstate.update(tok, ts_begin)
                 props.append(tok)
@@ -263,7 +273,8 @@ def assisted_decode(params: Any, arch: WhisperArch,
         else:
             logits, cache, align = decode_step_multi(
                 params, arch, block, at(lengths_h - 1), cache,
-                align_sel=align_sel)          # [B, S, V], [B, A, S, K]
+                align_sel=align_sel, key_mask=key_mask,
+                pos_offset=pos_offset)        # [B, S, V], [B, A, S, K]
 
         # sequential accept over the block, all rows at once: row r keeps
         # going while its target equals its own next input (draft d_{i+1})

@@ -9,8 +9,9 @@ reads one flag per step (have all rows finished?).
 With ``opts.b1_decode_kernel`` and a quantized serving cache, each step
 runs as one whole-step kernel (ops/decode_step.py): ``decode_step_b1`` at
 batch 1, ``decode_step_rows`` at 2-8 rows, under the reference's gates
-(greedy.py:160-201); anything else takes models/whisper.decode_step. The
-port reads only the live ring prefix, so it has no staged ring growth.
+(greedy.py:160-201), which a key mask or a position offset closes;
+anything else takes models/whisper.decode_step. The port reads only the
+live ring prefix, so it has no staged ring growth.
 """
 
 from __future__ import annotations
@@ -51,6 +52,24 @@ def _no_speech_prob(logits: torch.Tensor, no_speech: int) -> torch.Tensor:
     return torch.exp(logits[:, no_speech] - torch.logsumexp(logits, dim=-1))
 
 
+def _device(x, dev) -> torch.Tensor | None:
+    """A host array or tensor (or None) as a tensor on ``dev``."""
+    if x is None:
+        return None
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                           else x).to(dev)
+
+
+def _key_mask(prompt_mask, n_after: int, dev) -> torch.Tensor | None:
+    """The self-attention key mask [B, P + n_after]: ``prompt_mask`` over
+    the prompt slots, every slot after it attended."""
+    if prompt_mask is None:
+        return None
+    pm = _device(prompt_mask, dev).to(torch.bool)
+    return torch.cat([pm, torch.ones((pm.shape[0], n_after),
+                                     dtype=torch.bool, device=dev)], 1)
+
+
 @torch.inference_mode()
 def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
                   opts: GenerationOptions, encoder_out: torch.Tensor,
@@ -63,10 +82,18 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
                   generator: torch.Generator | None = None,
                   sot_position: int = 0,
                   cross_cache_dtype: str | None = None,
-                  self_cache_dtype: str | None = None) -> DecodeResult:
+                  self_cache_dtype: str | None = None,
+                  prompt_mask: np.ndarray | torch.Tensor | None = None,
+                  pos_offset: np.ndarray | torch.Tensor | None = None
+                  ) -> DecodeResult:
     """Decode a batch against precomputed encoder states.
 
-    prompt: [B, P] int forced prefix (e.g. [sot, lang, task]).
+    prompt: [B, P] int forced prefix (e.g. [sot, lang, task]); a
+      condition-on-prev prompt is left-padded to P with ``prompt_mask``
+      [B, P] bool False on the pads (the decoder attention mask).
+    pos_offset: int32 [B], each row's left-pad count: shifts the learned
+      position lookup only, so real tokens take positions 0..len-1 (the
+      dynamic condition-on-prev mode); None keeps pads on positions.
     temperature: 0 => argmax; > 0 => categorical sampling from
       softmax(scores / temperature), drawn from ``generator`` (a
       torch.Generator on the device; the fallback ladder re-invokes this
@@ -90,6 +117,8 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     prompt = prompt.to(device=dev, dtype=torch.long)
     tokens = torch.cat([prompt, torch.full((b, max_new_tokens), eot,
                                            dtype=torch.long, device=dev)], 1)
+    key_mask = _key_mask(prompt_mask, max_new_tokens, dev)
+    pos_offset = _device(pos_offset, dev)
 
     # block prefill of prompt[:, :P-1]; the no-speech capture happens here
     # when the SOT position falls inside the prefill block
@@ -97,7 +126,8 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     t = 0
     if p > 1:
         prefill_logits, cache, _ = decode_step_multi(
-            params, arch, prompt[:, :p - 1], 0, cache)
+            params, arch, prompt[:, :p - 1], 0, cache, key_mask=key_mask,
+            pos_offset=pos_offset)
         if sot_position <= p - 2:
             no_speech = _no_speech_prob(prefill_logits[:, sot_position],
                                         specials.no_speech)
@@ -110,15 +140,21 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
                             dtype=torch.float32, device=dev)
 
     # the whole-step kernel, decided once per decode as in the reference
-    use_b1_kernel = (opts.b1_decode_kernel and b == 1
-                     and step_kernel.supported(params, arch, cache, None, 1,
-                                               0, prompt[:, 0]))
-    use_rows_kernel = (opts.b1_decode_kernel and not use_b1_kernel
+    plain = key_mask is None and pos_offset is None
+    use_b1_kernel = (opts.b1_decode_kernel and b == 1 and plain
+                     and step_kernel.supported(params, arch, cache, key_mask,
+                                               1, 0, prompt[:, 0]))
+    use_rows_kernel = (opts.b1_decode_kernel and not use_b1_kernel and plain
                        and step_kernel.supported_rows(params, arch, cache,
-                                                      None, 0, prompt[:, 0]))
-    step = (step_kernel.decode_step_b1 if use_b1_kernel
-            else step_kernel.decode_step_rows if use_rows_kernel
-            else decode_step)
+                                                      key_mask, 0,
+                                                      prompt[:, 0]))
+    if use_b1_kernel or use_rows_kernel:
+        step = (step_kernel.decode_step_b1 if use_b1_kernel
+                else step_kernel.decode_step_rows)
+    else:
+        def step(*a, **kw):
+            return decode_step(*a, key_mask=key_mask, pos_offset=pos_offset,
+                               **kw)
 
     while t < t_total - 1 and not bool(finished.all()):
         logits, cache, align = step(params, arch, tokens[:, t], t, cache,

@@ -12,12 +12,13 @@ into the next power-of-2 bucket, so a batch takes at most log2(B) shapes.
 
 Quantized caches (``kv_cache_int8``/``int4``, ``self_kv_cache_int8``/
 ``int4``) map to init_cache's cache dtypes as in the reference
-(longform.py:42-51). Greedy windows at temperature 0 take the speculative
-path (decoding/assisted.py) when ``generate`` is given an assistant; its
-output is pinned to plain greedy's, so the fallback gates see the same
-tokens. Outside this port's slice (each raises NotImplementedError naming
-its ROADMAP queue-1 item): beam search (11), prompt_ids and
-condition_on_prev_tokens (12).
+(longform.py:42-51). Windows at temperature 0 run beam search
+(decoding/beam.py) when ``opts.num_beams`` > 1, else the speculative path
+(decoding/assisted.py) when ``generate`` is given an assistant; the
+speculative output is pinned to plain greedy's, so the fallback gates see
+the same tokens. ``opts.prompt_ids`` and ``opts.condition_on_prev_tokens``
+prefix each window's init tokens with the user prompt or the previous
+segments' tokens (hf generation_whisper.py:1875-1943).
 """
 
 from __future__ import annotations
@@ -49,19 +50,6 @@ class GenerateOutput:
     segments: list[list[dict[str, Any]]]        # per item
 
 
-def check_supported(opts: GenerationOptions) -> None:
-    """Raise NotImplementedError for options outside the port's slice."""
-    if opts.num_beams > 1:
-        raise NotImplementedError(
-            "beam search is not ported yet (ROADMAP queue 1, item 11)")
-    if opts.prompt_ids is not None:
-        raise NotImplementedError(
-            "prompt_ids is not ported yet (ROADMAP queue 1, item 12)")
-    if opts.condition_on_prev_tokens:
-        raise NotImplementedError("condition_on_prev_tokens is not ported "
-                                  "yet (ROADMAP queue 1, item 12)")
-
-
 def _kv_dtype(opts: GenerationOptions) -> str | None:
     if opts.kv_cache_int4:
         return INT4
@@ -76,22 +64,37 @@ def _self_kv_dtype(opts: GenerationOptions) -> str | None:
 
 def _decode_window(params, arch, specials, opts, segment_features,
                    prompt, max_new, suppress, begin_suppress, align_sel,
-                   temperature, generator, dtw_frames, assistant=None):
+                   temperature, generator, dtw_frames, prompt_mask=None,
+                   sot_position=0, assistant=None, pos_offset=None):
     """One batched decode of 30 s windows + the alignment pass. Returns
-    host arrays: sequences, num_generated, sum_logprobs, no_speech,
-    jump_times (seconds, or None without alignment heads).
+    host arrays: sequences, num_generated, score, is the score
+    length-normalized, no_speech, jump_times (seconds, or None without
+    alignment heads).
 
-    With an ``assistant`` ("prompt_lookup" or a (draft_params,
-    draft_arch) pair) a window at temperature 0 decodes speculatively
-    (reference longform.py:77-111); sampled temperatures decode plainly."""
+    Beam search runs only at temperature 0 (hf generate_with_fallback
+    :1013-1016) and then takes precedence over an ``assistant``; its score
+    is ``sequences_scores``, already normalized (the quantity the fallback
+    gate reads, :1266). With an ``assistant`` ("prompt_lookup" or a
+    (draft_params, draft_arch) pair) a greedy window at temperature 0
+    decodes speculatively (reference longform.py:77-111); sampled
+    temperatures decode plainly."""
     encoder_out = encode(params, arch, segment_features)
     kw = dict(max_new_tokens=max_new, suppress_mask=suppress,
               begin_suppress_mask=begin_suppress, align_sel=align_sel,
               return_timestamps=opts.return_timestamps,
               cross_cache_dtype=_kv_dtype(opts),
-              self_cache_dtype=_self_kv_dtype(opts))
+              self_cache_dtype=_self_kv_dtype(opts),
+              prompt_mask=prompt_mask, sot_position=sot_position,
+              pos_offset=pos_offset)
     prompt = torch.from_numpy(prompt)
-    if assistant is not None and temperature == 0.0:
+    use_beams = opts.num_beams > 1 and temperature == 0.0
+    normalized = use_beams
+    if use_beams:
+        from .beam import beam_decode
+        res = beam_decode(params, arch, specials, opts, encoder_out, prompt,
+                          num_beams=opts.num_beams, **kw)
+        score = res.sequences_scores
+    elif assistant is not None and temperature == 0.0:
         from .assisted import assisted_decode
         draft_params = draft_arch = draft_enc = None
         if assistant != "prompt_lookup":
@@ -106,8 +109,9 @@ def _decode_window(params, arch, specials, opts, segment_features,
         res = greedy_decode(params, arch, specials, opts, encoder_out,
                             prompt, temperature=temperature,
                             generator=generator, **kw)
-    outs = [res.sequences, res.num_generated, res.sum_logprobs,
-            res.no_speech_probs]
+    if not use_beams:
+        score = res.sum_logprobs
+    outs = [res.sequences, res.num_generated, score, res.no_speech_probs]
     if align_sel is not None:
         # every row, full (1500 frames) or cropped, in one prep + one DTW
         n_tokens = (res.num_generated - 1).clamp_min(0)
@@ -122,7 +126,7 @@ def _decode_window(params, arch, specials, opts, segment_features,
     jump_times = None
     if align_sel is not None:
         jump_times = host[4].numpy().astype(np.float32) * opts.time_precision
-    return seqs, ngen, score, no_sp, jump_times
+    return seqs, ngen, score, normalized, no_sp, jump_times
 
 
 @torch.inference_mode()
@@ -149,7 +153,6 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
       "prompt_lookup": windows at temperature 0 decode speculatively
       (decoding/assisted.py), with the same output as plain greedy.
     """
-    check_supported(opts)
     feats = input_features
     dev = feats.device
     b, n_mels, total_frames = feats.shape
@@ -204,6 +207,40 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
             task_token=task_token,
             return_timestamps=opts.return_timestamps,
             forced_tokens=opts.forced_tokens)
+    conditioning = bool(opts.condition_on_prev_tokens)
+    # the user prompt (hf generate(prompt_ids=...), :1875-1943 and
+    # _prepare_segments :1130-1139)
+    prompt_ids = (np.asarray(opts.prompt_ids, np.int32)
+                  if opts.prompt_ids is not None else None)
+    if opts.prompt_condition_type not in ("first-segment", "all-segments"):
+        raise ValueError(
+            f"prompt_condition_type={opts.prompt_condition_type!r} does not "
+            "exist; use 'first-segment' or 'all-segments'")
+    if (prompt_ids is not None
+            and opts.prompt_condition_type == "all-segments"
+            and not conditioning):
+        raise ValueError(
+            "Make sure to set condition_on_prev_tokens=True when setting "
+            "prompt_condition_type='all-segments'.")
+    # A conditioned window's prompt region has the fixed width cut_off +
+    # len(bos), left-padded with eot under a mask; windows without earlier
+    # context decode the bare init tokens (hf :1900). opts.condition_mode:
+    # "static" lets the pads take learned positions (padding='max_length',
+    # hf :1913-1921); "dynamic" shifts each row's positions by its pad
+    # count, so real tokens take 0..len-1 (the reference's default
+    # padding='longest' with mask-aware decoder_position_ids).
+    cut_off = arch.max_target_positions // 2 - 1
+    # the conditioned prefix begins with <|startofprev|>, or in
+    # all-segments mode with the whole user prompt (hf _pad_to_max_length
+    # never trims the bos tokens)
+    cond_bos = (prompt_ids.astype(np.int64)
+                if (prompt_ids is not None
+                    and opts.prompt_condition_type == "all-segments")
+                else np.asarray([specials.sot_prev], np.int64))
+    prev_width = (cut_off + len(cond_bos)) if conditioning else 0
+    # rows start out willing to condition (hf :1316); window 1 still
+    # decodes bare unless the prompt seeded the segments below
+    do_condition = np.full((b,), conditioning, bool)
 
     want_ts = opts.return_token_timestamps and len(opts.alignment_heads) > 0
     suppress = (torch.from_numpy(suppress_tokens_mask(
@@ -217,6 +254,19 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(opts.prompt_seed)
     current_segments: list[list[dict[str, Any]]] = [[] for _ in range(b)]
+    prompt_seeded = False
+    if prompt_ids is not None and opts.prompt_condition_type == \
+            "first-segment":
+        # the prompt seeds the previous context as a first "segment"
+        # (its leading <|startofprev|> stripped: the conditioned prefix
+        # adds it back as the bos), trimmed from the output below (hf :920)
+        seed = (prompt_ids[1:] if len(prompt_ids) and
+                prompt_ids[0] == specials.sot_prev else prompt_ids)
+        current_segments = [[{"tokens": seed.astype(np.int64),
+                              "token_timestamps":
+                                  np.zeros(len(seed), np.float32)}]
+                            for _ in range(b)]
+        prompt_seeded = True
 
     while (seek < max_frames).any():
         active = seek < max_frames
@@ -248,32 +298,67 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
         else:
             dtw_frames = np.full((b,), arch.max_source_positions, np.int64)
 
+        # the conditioned decoder prompt (hf _prepare_decoder_input_ids)
         iter_prompt = init_tokens[rows]
+        iter_mask = None
+        iter_pos_offset = None
+        if (conditioning and do_condition[rows].any()
+                and any(len(current_segments[i]) for i in rows)):
+            prev_tok = pad_segments_to_max_length(
+                [current_segments[i] if do_condition[i] else []
+                 for i in rows],
+                specials.eot, padding_side="left", cut_off_length=cut_off,
+                bos_token=cond_bos, skip_ending_double_timestamps=True,
+                timestamp_begin=specials.timestamp_begin,
+                fixed_total_length=prev_width)
+            iter_prompt = np.concatenate(
+                [prev_tok.astype(np.int32), iter_prompt], axis=1)
+            iter_mask = np.concatenate(
+                [prev_tok != specials.eot,
+                 np.ones_like(init_tokens[rows], bool)], axis=1)
+            if opts.condition_mode == "dynamic":
+                # the pads are contiguous on the left, so each row's offset
+                # is its pad count
+                iter_pos_offset = (~iter_mask).sum(axis=1).astype(np.int32)
+        elif prompt_ids is not None:
+            # an unconditioned prompt prefixes the init tokens unmasked:
+            # its slots are attended and take positions (hf :1932-1936)
+            iter_prompt = np.concatenate(
+                [np.tile(prompt_ids, (len(rows), 1)), iter_prompt], axis=1)
         p = iter_prompt.shape[1]
         max_new = min(opts.max_new_tokens, arch.max_target_positions - p)
+        # the SOT slot inside the prompt: its raw logits carry
+        # P(<|nospeech|>)
+        sot_position = p - init_tokens.shape[1]
 
         # --- temperature fallback ladder (generate_with_fallback) ---
         resolved = np.zeros((bucket,), bool)
         resolved[nact:] = True                         # filler slots
         results: list[Any] = [None] * bucket
         for t_idx, temperature in enumerate(opts.temperatures):
-            seqs, ngen, score, no_sp, jt = _decode_window(
+            seqs, ngen, score, normalized, no_sp, jt = _decode_window(
                 params, arch, specials, opts, segment, iter_prompt, max_new,
                 suppress, begin_suppress, align_sel, float(temperature),
-                generator, dtw_frames[rows], assistant)
+                generator, dtw_frames[rows], prompt_mask=iter_mask,
+                sot_position=sot_position, assistant=assistant,
+                pos_offset=iter_pos_offset)
             is_last = t_idx == len(opts.temperatures) - 1
             for j in range(nact):
                 if resolved[j]:
                     continue
                 g = int(ngen[j])
                 seq_with_eos = seqs[j, p:p + g]
-                avg_lp = (score[j] / g) if g > 0 else 0.0
+                avg_lp = (score[j] if normalized
+                          else (score[j] / g) if g > 0 else 0.0)
                 nf, skip = need_fallback(seq_with_eos, avg_lp, no_sp[j],
                                          arch.vocab_size, opts)
                 if not nf or is_last:
                     results[j] = (seq_with_eos, jt[j] if jt is not None
                                   else None, skip)
                     resolved[j] = True
+                    # condition the next window only on low-temperature
+                    # results (hf generate_with_fallback :1100-1103)
+                    do_condition[rows[j]] = conditioning and temperature < 0.5
             if resolved.all():
                 break
 
@@ -301,12 +386,14 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
         if opts.force_unique_generate_call:
             break                # exactly one seek pass (hf :913)
 
+    # the seeded prompt "segment" is context, not output (hf :918-922)
+    final_segments = ([segs[1:] for segs in current_segments]
+                      if prompt_seeded else current_segments)
     if want_ts:
         sequences, token_ts = pad_segments_to_max_length(
-            current_segments, specials.eot, return_token_timestamps=True)
+            final_segments, specials.eot, return_token_timestamps=True)
     else:
-        sequences = pad_segments_to_max_length(current_segments,
-                                               specials.eot)
+        sequences = pad_segments_to_max_length(final_segments, specials.eot)
         token_ts = None
     return GenerateOutput(sequences=sequences, token_timestamps=token_ts,
-                          segments=current_segments)
+                          segments=final_segments)

@@ -233,7 +233,8 @@ def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
                dtype: torch.dtype | None = None,
                cache_len: int | None = None,
                cross_dtype: str | None = None,
-               self_dtype: str | None = None) -> DecoderCache:
+               self_dtype: str | None = None,
+               self_batch: int | None = None) -> DecoderCache:
     """Allocate the self-attention ring (cache_len positions, default
     max_target_positions) and fill the cross-attention K/V.
 
@@ -241,7 +242,9 @@ def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
     over Dh (from the f32 projections); self_dtype likewise makes the
     ring quantized: zeros with bf16 scales, each new column quantized as
     a step writes it. None keeps a half in ``dtype`` (default: the
-    encoder states' dtype)."""
+    encoder states' dtype). self_batch sizes the ring's batch apart from
+    the encoder batch: beam search keeps one cross cache per item and one
+    ring per beam (self_batch = B * NB; see decode_step's beam_groups)."""
     dec = params["decoder"]
     b, k_len, _ = encoder_out.shape
     h, dh = arch.decoder_attention_heads, arch.head_dim
@@ -254,20 +257,21 @@ def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
             raise ValueError(f"cache dtype {kind!r}: use None, "
                              f"{INT8!r} or {INT4!r}")
 
-    def empty(kind, t):
+    def empty(kind, rows, t):
         if kind is None:
-            return torch.zeros((n_layers, b, h, t, dh), dtype=dtype,
+            return torch.zeros((n_layers, rows, h, t, dh), dtype=dtype,
                                device=dev)
         width = dh // 2 if kind == INT4 else dh
-        return torch.zeros((n_layers, b, h, t, width), device=dev,
+        return torch.zeros((n_layers, rows, h, t, width), device=dev,
                            dtype=torch.uint8 if kind == INT4 else torch.int8)
 
-    def scales(kind, t):
+    def scales(kind, rows, t):
         return None if kind is None else torch.zeros(
-            (n_layers, b, h, t), dtype=torch.bfloat16, device=dev)
+            (n_layers, rows, h, t), dtype=torch.bfloat16, device=dev)
 
-    cross_k, cross_v = empty(cross_dtype, k_len), empty(cross_dtype, k_len)
-    cks, cvs = scales(cross_dtype, k_len), scales(cross_dtype, k_len)
+    cross_k, cross_v = (empty(cross_dtype, b, k_len),
+                        empty(cross_dtype, b, k_len))
+    cks, cvs = scales(cross_dtype, b, k_len), scales(cross_dtype, b, k_len)
     for li, lp in enumerate(dec["layers"]):
         for name, dst, sc in (("k", cross_k, cks), ("v", cross_v, cvs)):
             x = _split_heads(dense(encoder_out, lp["cross"][name]), h)
@@ -277,12 +281,13 @@ def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
                 q, s = _quantize(x.float(), _QMAX[cross_dtype])
                 dst[li] = _store(q, cross_dtype)
                 sc[li] = s
-    return DecoderCache(self_k=empty(self_dtype, cache_len),
-                        self_v=empty(self_dtype, cache_len),
+    rows = self_batch or b
+    return DecoderCache(self_k=empty(self_dtype, rows, cache_len),
+                        self_v=empty(self_dtype, rows, cache_len),
                         cross_k=cross_k, cross_v=cross_v,
                         cross_k_scale=cks, cross_v_scale=cvs,
-                        self_k_scale=scales(self_dtype, cache_len),
-                        self_v_scale=scales(self_dtype, cache_len))
+                        self_k_scale=scales(self_dtype, rows, cache_len),
+                        self_v_scale=scales(self_dtype, rows, cache_len))
 
 
 def alignment_selector(arch: WhisperArch,
@@ -393,27 +398,28 @@ def _write_block(cache: DecoderCache, li: int, position: int,
         ring[li, :, :, position:end] = blk
 
 
-@torch.inference_mode()
-def decode_step_multi(params: Params, arch: WhisperArch,
-                      tokens: torch.Tensor, position: int | torch.Tensor,
-                      cache: DecoderCache,
-                      align_sel: np.ndarray | None = None
-                      ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
-    """S-token incremental step (block prefill, or the verify block of
-    speculative decoding) at positions [position, position + S).
-    ``position`` is an int, or an int32 [B] tensor of per-row positions
-    (the reference's vector form, whisper.py:653-728): row b's block then
-    lands at ring slots [position[b], position[b] + S). Writes the S new
-    K/V rows into the self cache (quantized per column over Dh when the
-    ring is), attends causally (query i of row b to slots <=
-    position[b] + i) over the live prefix only, up to the largest
-    position + S (the semantics of the reference's staged_ring_quantum=0:
-    its masked slots contribute exact zeros) and captures the alignment
-    heads' cross-attention. Activations take the ring's dtype, or the
-    token embedding's when the ring is quantized.
+def _beam_rows(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, H, S, *] -> [B/NB, H, NB*S, *]: the NB beams of an item as
+    extra query rows of the item's cross attention."""
+    b, h, s = x.shape[:3]
+    return x.reshape(b // groups, groups, h, s, -1).transpose(1, 2) \
+        .reshape(b // groups, h, groups * s, -1)
 
-    Returns (logits [B, S, vocab] f32, cache, align_probs [B, A, S, K]
-    f32 — zeros when align_sel is None)."""
+
+def _unbeam_rows(x: torch.Tensor, groups: int, s: int) -> torch.Tensor:
+    """The inverse of ``_beam_rows``: [B/NB, H, NB*S, *] -> [B, H, S, *]."""
+    b0, h = x.shape[:2]
+    return x.reshape(b0, h, groups, s, -1).transpose(1, 2) \
+        .reshape(b0 * groups, h, s, -1)
+
+
+@torch.inference_mode()
+def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
+                  position, cache: DecoderCache, align_sel, key_mask,
+                  pos_offset, beam_groups: int, clamp_offset: bool):
+    """decode_step_multi's body; ``clamp_offset`` clamps the shifted
+    learned-position index at 0 (the reference does so in its block step,
+    whisper.py:706-715, and not in its one-token step)."""
     dec = params["decoder"]
     h = arch.decoder_attention_heads
     b, s = tokens.shape
@@ -430,8 +436,15 @@ def decode_step_multi(params: Params, arch: WhisperArch,
         pos_ids = lo + steps                                      # [S]
     else:
         pos_ids = pos_rows.long()[:, None] + steps[None, :]       # [B, S]
+    emb_ids = pos_ids
+    if pos_offset is not None:
+        # the offset moves only the learned-position lookup; ring slots,
+        # the causal mask and the writes keep pos_ids
+        emb_ids = pos_ids - pos_offset.to(device=dev).long()[:, None]
+        if clamp_offset:
+            emb_ids = emb_ids.clamp_min(0)
     x = dec["tok_emb"][tokens].to(dtype) \
-        + dec["pos_emb"][pos_ids].to(dtype)                      # [B, S, d]
+        + dec["pos_emb"][emb_ids].to(dtype)                      # [B, S, d]
     mask = None
     if pos_rows is not None:
         # query i of row b attends to slots <= position[b] + i
@@ -440,6 +453,11 @@ def decode_step_multi(params: Params, arch: WhisperArch,
     elif s > 1:
         mask = (torch.arange(end, device=dev)[None, :]
                 <= pos_ids[:, None])                           # [S, T]
+    if key_mask is not None:
+        # slots a row may attend to (False on a conditioned prompt's left
+        # pads), over the live prefix the step reads
+        live = key_mask.to(device=dev, dtype=torch.bool)[:, None, None, :end]
+        mask = live if mask is None else mask & live          # [B, 1, S, T]
     scale = arch.head_dim ** -0.5
     n_align = align_sel.shape[-1] if align_sel is not None else 1
     aligned = torch.zeros((b, n_align, s, cache.cross_k.shape[3]),
@@ -462,12 +480,17 @@ def decode_step_multi(params: Params, arch: WhisperArch,
 
         y = layer_norm(x, lp["ln2"])
         qc = _split_heads(dense(y, lp["cross"]["q"]) * scale, h)
+        if beam_groups > 1:
+            qc = _beam_rows(qc, beam_groups)
         if cross_quant:
             out, probs = quantized_attention(
                 qc, cache.cross_k[li], cache.cross_v[li],
                 cache.cross_k_scale[li], cache.cross_v_scale[li])
         else:
             out, probs = attention(qc, cache.cross_k[li], cache.cross_v[li])
+        if beam_groups > 1:
+            out = _unbeam_rows(out, beam_groups, s)
+            probs = _unbeam_rows(probs, beam_groups, s)
         x = x + dense(_merge_heads(out.to(x.dtype)), lp["cross"]["o"])
         slots, src = heads[li]
         if slots:
@@ -481,15 +504,60 @@ def decode_step_multi(params: Params, arch: WhisperArch,
     return logits, cache, aligned
 
 
+def decode_step_multi(params: Params, arch: WhisperArch,
+                      tokens: torch.Tensor, position: int | torch.Tensor,
+                      cache: DecoderCache,
+                      align_sel: np.ndarray | None = None,
+                      key_mask: torch.Tensor | None = None,
+                      pos_offset: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
+    """S-token incremental step (block prefill, or the verify block of
+    speculative decoding) at positions [position, position + S).
+    ``position`` is an int, or an int32 [B] tensor of per-row positions
+    (the reference's vector form, whisper.py:653-728): row b's block then
+    lands at ring slots [position[b], position[b] + S). Writes the S new
+    K/V rows into the self cache (quantized per column over Dh when the
+    ring is), attends causally (query i of row b to slots <=
+    position[b] + i) over the live prefix only, up to the largest
+    position + S (the semantics of the reference's staged_ring_quantum=0:
+    its masked slots contribute exact zeros) and captures the alignment
+    heads' cross-attention. Activations take the ring's dtype, or the
+    token embedding's when the ring is quantized.
+
+    key_mask: bool [B, cache_len], the slots each row may attend to (False
+      on the left pads of a conditioned prompt); masked scores are -1e9,
+      so a query whose every slot is masked gets a uniform row, as in the
+      reference, not NaN.
+    pos_offset: int32 [B], subtracted from the positions for the learned
+      position lookup only, clamped at 0 (the dynamic condition-on-prev
+      mode: real tokens take positions 0..len-1 whatever the padding).
+
+    Returns (logits [B, S, vocab] f32, cache, align_probs [B, A, S, K]
+    f32 — zeros when align_sel is None)."""
+    return _decode_block(params, arch, tokens, position, cache, align_sel,
+                         key_mask, pos_offset, 1, True)
+
+
 def decode_step(params: Params, arch: WhisperArch, tokens: torch.Tensor,
                 position: int | torch.Tensor, cache: DecoderCache,
-                align_sel: np.ndarray | None = None
+                align_sel: np.ndarray | None = None,
+                key_mask: torch.Tensor | None = None,
+                pos_offset: torch.Tensor | None = None,
+                beam_groups: int = 1
                 ) -> tuple[torch.Tensor, DecoderCache, torch.Tensor]:
     """One incremental decoder step: tokens [B] at ``position`` (an int,
-    or an int32 [B] tensor of per-row positions). Returns (logits [B,
-    vocab] f32, cache, align_probs [B, A, K] f32)."""
-    logits, cache, aligned = decode_step_multi(
-        params, arch, tokens[:, None], position, cache, align_sel)
+    or an int32 [B] tensor of per-row positions); key_mask and pos_offset
+    as in ``decode_step_multi``, except that the shifted position is not
+    clamped (callers keep it >= 0, whisper.py:394-403).
+
+    beam_groups: NB > 1 when the B rows are NB consecutive beams per item
+      and the cross cache holds one copy per item ([L, B/NB, ...]): the
+      beams ride the item's cross attention as extra query rows.
+
+    Returns (logits [B, vocab] f32, cache, align_probs [B, A, K] f32)."""
+    logits, cache, aligned = _decode_block(
+        params, arch, tokens[:, None], position, cache, align_sel, key_mask,
+        pos_offset, beam_groups, False)
     return logits[:, 0], cache, aligned[:, :, 0]
 
 

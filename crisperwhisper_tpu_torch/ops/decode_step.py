@@ -1,21 +1,23 @@
 """Whole-step quantized decoder: one kernel per decode step, all layers.
 
-Port of crisperwhisper_tpu/ops/pallas_decode_b1.py for the three modes the
-greedy and speculative loops reach: ``decode_step_b1`` (one stream),
-``decode_step_rows`` (2-8 distinct streams at one shared position) and
+Port of crisperwhisper_tpu/ops/pallas_decode_b1.py for the four modes the
+greedy, speculative and beam loops reach: ``decode_step_b1`` (one stream),
+``decode_step_rows`` (2-8 distinct streams at one shared position),
 ``decode_step_b1_multi`` (the speculative verify block: S <= 8 consecutive
-tokens of one stream). All run ``whole_step``, which launches
-``csrc/decode_step.cu`` for CUDA tensors and runs ``whole_step_plain``
-only for CPU tensors.
+tokens of one stream) and ``decode_step_b1_beams`` (2-8 beams of one item
+at one shared position: per-beam rings, one shared cross cache). All run
+``whole_step``, which launches ``csrc/decode_step.cu`` for CUDA tensors
+and runs ``whole_step_plain`` only for CPU tensors.
 
 The gated configuration (``supported``/``supported_rows``/
-``supported_multi``) is the
+``supported_multi``/``supported_beams``) is the
 reference's: fused-QKV int8 decoder weights (models/quantize.py), an int8
 self ring with bf16 per-position scales, an int8 or packed-int4 cross
-cache, a scalar position, no key mask, no beam grouping. On top of that
+cache, a scalar position, no key mask, no beam grouping (beams take their
+own mode). On top of that
 the CUDA kernel's own shape limits (``_kernel_takes``) take the place of
 the reference's TPU-only ``_mosaic_aligned``: a shape the kernel does not
-take fails the gate, so greedy decoding takes models/whisper.decode_step
+take fails the gate, so the decode loops take models/whisper.decode_step
 as the reference's gate would; it never fails at the launch.
 
 Numerics of one step (the reference kernel's, pallas_decode_b1.py
@@ -57,7 +59,7 @@ from ..models.whisper import (DecoderCache, _quantize, cache_values,
                               layer_norm)
 
 MAX_ROWS = 8                     # rows of one step (the reference's cap)
-MODES = ("b1", "rows", "multi")
+MODES = ("b1", "rows", "multi", "beams")
 THREADS = 512                    # block size of the CUDA kernel
 SMEM_LIMIT = 232448              # bytes of shared memory a block may use
 _HEAD_DIMS = (16, 32, 64)
@@ -137,6 +139,18 @@ def supported_multi(params: Any, arch: WhisperArch, cache: DecoderCache,
             and _kernel_takes(arch, cache, s))
 
 
+def supported_beams(params: Any, arch: WhisperArch, cache: DecoderCache,
+                    key_mask, position, tokens) -> bool:
+    """The beam-rows gate (pallas_decode_b1.py:935-954): 2..8 beams of one
+    item at a shared scalar position, each with its own int8 ring, all
+    reading one quantized cross cache of batch 1."""
+    r = tokens.shape[0]
+    return (tokens.dim() == 1 and 1 < r <= MAX_ROWS and _scalar(position)
+            and key_mask is None and _quantized(params, cache)
+            and cache.self_k.shape[1] == r and cache.cross_k.shape[1] == 1
+            and _kernel_takes(arch, cache, r))
+
+
 # ---------------------------------------------------------------------------
 # The plain version
 # ---------------------------------------------------------------------------
@@ -165,13 +179,15 @@ def _gemv(y: torch.Tensor, p: dict, extra: float | None = None
 def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
                      position: int, cache: DecoderCache,
                      heads: tuple[tuple[int, int] | None, ...],
-                     align_bf16: bool = False, multi: bool = False
+                     align_bf16: bool = False, multi: bool = False,
+                     beams: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's algebra in plain PyTorch. x0 [M, d] f32: row m is
     stream m of the rings and cross caches, or with ``multi`` the token at
-    position + m of the one stream (rings and cross caches of batch 1);
-    ``heads`` names the (layer, head) of each alignment slot (None: no
-    source). Writes each layer's fresh K/V columns into the ring at
+    position + m of the one stream (rings and cross caches of batch 1),
+    or with ``beams`` beam m of one item (ring m, the one cross cache of
+    batch 1); ``heads`` names the (layer, head) of each alignment slot
+    (None: no source). Writes each layer's fresh K/V columns into the ring at
     ``position`` (M of them with ``multi``) in place and returns (hid [M,
     d] f32 — the residual stream after the last layer, align [M, A, K]
     f32)."""
@@ -183,8 +199,11 @@ def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
                   <= position
                   + torch.arange(m, device=x0.device)[:, None, None])
 
-    def rows(x):          # [R, ...] per-stream slice -> [M, ...] per row
-        return x.expand(m, *x.shape[1:]) if multi else x
+    def rows(x, shared=multi):  # [R, ...] per-stream slice -> [M, ...]
+        return x.expand(m, *x.shape[1:]) if shared else x
+
+    def cross(x):         # the cross cache is shared by multi and beams
+        return rows(x, multi or beams)
     align = torch.zeros((m, len(heads), cache.cross_k.shape[3]),
                         dtype=torch.float32, device=x0.device)
     xr = x0.float()
@@ -215,17 +234,17 @@ def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
         qc = _gemv(_ln(xr, lp["ln2"]), lp["cross"]["q"],
                    extra=dh ** -0.5).reshape(m, h, dh)
         sk = torch.einsum("mhd,mhkd->mhk", qc,
-                          rows(cache_values(cache.cross_k[li])).float()) \
-            * rows(cache.cross_k_scale[li]).float()
+                          cross(cache_values(cache.cross_k[li])).float()) \
+            * cross(cache.cross_k_scale[li]).float()
         p = torch.softmax(sk, dim=-1)
         for a, src in enumerate(heads):
             if src is not None and src[0] == li:
                 row = p[:, src[1]]
                 align[:, a] = (row.to(torch.bfloat16).float() if align_bf16
                                else row)
-        pv = p * rows(cache.cross_v_scale[li]).float()
+        pv = p * cross(cache.cross_v_scale[li]).float()
         out = torch.einsum("mhk,mhkd->mhd", pv,
-                           rows(cache_values(cache.cross_v[li])).float())
+                           cross(cache_values(cache.cross_v[li])).float())
         xr = xr + _gemv(out.reshape(m, d), lp["cross"]["o"])
 
         hmid = F.gelu(_gemv(_ln(xr, lp["ln3"]), lp["mlp"]["fc1"]))
@@ -316,14 +335,15 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
 def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
                position: int, cache: DecoderCache,
                heads: tuple[tuple[int, int] | None, ...],
-               align_bf16: bool = False, multi: bool = False
+               align_bf16: bool = False, multi: bool = False,
+               beams: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """``whole_step_plain``'s contract. CUDA tensors launch the kernel
     (csrc/decode_step.cu) once, counted in ``launches`` and by mode in
     ``mode_launches``; CPU tensors take the plain version."""
     if x0.device.type == "cpu":
         return whole_step_plain(params, arch, x0, position, cache, heads,
-                                align_bf16, multi)
+                                align_bf16, multi, beams)
     if x0.device.type != "cuda":
         raise ValueError(f"whole_step: unsupported device {x0.device}")
     dev = x0.device
@@ -340,10 +360,12 @@ def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
     if not 0 <= position <= t_ring - n_new:
         raise ValueError(f"whole_step: slots [{position}, {position + n_new})"
                          f" outside the ring of {t_ring}")
+    if multi and beams:
+        raise ValueError("whole_step: multi and beams are two modes")
     _check("x0", x0, torch.float32, (m, d), dev)
-    streams = 1 if multi else m
-    ring = (n_layers, streams, h, t_ring)
-    cross = (n_layers, streams, h, k_enc)
+    shared_cross = multi or beams
+    ring = (n_layers, 1 if multi else m, h, t_ring)
+    cross = (n_layers, 1 if shared_cross else m, h, k_enc)
     for name in ("self_k", "self_v"):
         _check(name, getattr(cache, name), torch.int8, ring + (dh,), dev)
     for name in ("self_k_scale", "self_v_scale"):
@@ -372,10 +394,10 @@ def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
             cache.cross_v_scale.data_ptr(), table.data_ptr(),
             align.data_ptr(), m, n_layers, d, f, h, dh, t_ring, position,
             k_enc, len(heads), int(cross_int4), int(align_bf16), int(multi),
-            dh ** -0.5, stream)
+            int(shared_cross), dh ** -0.5, stream)
     _build.check(err, "whole_step")
     whole_step.launches += 1
-    whole_step.mode_launches["multi" if multi else
+    whole_step.mode_launches["multi" if multi else "beams" if beams else
                              "b1" if m == 1 else "rows"] += 1
     return hid, align
 
@@ -409,14 +431,16 @@ def _lm_head(dec: dict, hid: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), dec["tok_emb"].float().T)
 
 
-def _step(params, arch, tokens, position, cache, align_sel, align_dtype):
+def _step(params, arch, tokens, position, cache, align_sel, align_dtype,
+          beams=False):
     dec = params["decoder"]
     position = int(position)
     x0 = (dec["tok_emb"][tokens].float()
           + dec["pos_emb"][position][None].float())              # [M, d]
     hid, align = whole_step(params, arch, x0, position, cache,
                             _heads(align_sel),
-                            align_bf16=align_dtype == torch.bfloat16)
+                            align_bf16=align_dtype == torch.bfloat16,
+                            beams=beams)
     return _lm_head(dec, hid), cache, align
 
 
@@ -475,3 +499,21 @@ def decode_step_b1_multi(params: Any, arch: WhisperArch,
                             multi=True)
     return (_lm_head(dec, hid)[None], cache,
             align.transpose(0, 1)[None])
+
+
+@torch.inference_mode()
+def decode_step_b1_beams(params: Any, arch: WhisperArch,
+                         tokens: torch.Tensor, position: int,
+                         cache: DecoderCache,
+                         align_sel: np.ndarray | None = None,
+                         align_dtype: torch.dtype = torch.float32
+                         ) -> tuple[torch.Tensor, DecoderCache,
+                                    torch.Tensor]:
+    """models/whisper.decode_step(beam_groups=R) at batch 1 in the gated
+    configuration (``supported_beams``; pallas_decode_b1.py:981-994): R
+    beams of one item advance at one shared position, each on its own
+    ring, all reading the item's one cross cache. The rows mode's step
+    with the cross cache shared. Returns (logits [R, V] f32, cache,
+    align_probs [R, A, K] f32)."""
+    return _step(params, arch, tokens, position, cache, align_sel,
+                 align_dtype, beams=True)

@@ -109,6 +109,9 @@ class ASRPipeline:
                  = None, adjust_pauses_threshold: float | None = None,
                  return_language: bool = False,
                  prompt: Any | None = None):
+        """prompt: an optional domain-vocabulary bias for this call, a
+        string (tokenized by tokenizer.get_prompt_ids) or an array of
+        prompt ids (hf pipeline generate_kwargs={'prompt_ids': ...})."""
         single = not isinstance(inputs, (list, tuple))
         audios = [inputs] if single else list(inputs)
         results = self.transcribe_batch(
@@ -125,9 +128,6 @@ class ASRPipeline:
                          return_language=False,
                          adjust_pauses_threshold: float | None = None,
                          prompt: Any | None = None):
-        if prompt is not None:
-            raise NotImplementedError(
-                "prompt is not ported yet (ROADMAP queue 1, item 12)")
         cfg = self.feat_cfg
         sr = cfg.sampling_rate
         sl_s, sr_s = self.pipe_opts.strides()
@@ -145,7 +145,8 @@ class ASRPipeline:
 
         with self.meter.measure(total_audio_s):
             chunk_outputs = self._run_chunks(chunks, n_samples,
-                                             return_timestamps)
+                                             return_timestamps,
+                                             prompt=prompt)
 
         results = []
         for idx in range(len(audios)):
@@ -170,7 +171,8 @@ class ASRPipeline:
 
     @torch.inference_mode()
     def _run_chunks(self, chunks: list[Chunk], n_samples: int,
-                    return_timestamps) -> list[dict]:
+                    return_timestamps, prompt: Any | None = None
+                    ) -> list[dict]:
         """Batch chunk windows into [B, n_samples] device batches and
         decode each with the seek-loop generate."""
         bs = self.pipe_opts.batch_size
@@ -179,6 +181,12 @@ class ASRPipeline:
         if not want_words and opts.return_token_timestamps:
             opts = GenerationOptions(
                 **{**opts.__dict__, "return_token_timestamps": False})
+        if prompt is not None:
+            ids = (self.tokenizer.get_prompt_ids(prompt)
+                   if isinstance(prompt, str) else np.asarray(prompt))
+            opts = GenerationOptions(
+                **{**opts.__dict__,
+                   "prompt_ids": tuple(int(t) for t in ids)})
 
         outputs: list[dict] = [None] * len(chunks)  # type: ignore
         for start in range(0, len(chunks), bs):

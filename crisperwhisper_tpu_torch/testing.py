@@ -201,7 +201,8 @@ def write_wav(path: str, audio: np.ndarray) -> str:
 
 
 def to_device(tree, device):
-    """A parameter tree (dicts and lists of tensors) moved to ``device``."""
+    """A parameter tree (dicts and lists of tensors) with ``tensor.to(device)``
+    applied to every leaf: moved to a device, or cast to a dtype."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -337,17 +338,19 @@ def _fresh(ring: torch.Tensor, position: int, n: int) -> torch.Tensor:
 
 def tie_column_error(params, arch: WhisperArch, x0: torch.Tensor,
                      position: int, cache, plain: bool = False,
-                     multi: bool = False) -> int:
+                     multi: bool = False, beams: bool = False) -> int:
     """Largest distance, in int8 steps, of layer 0's fresh K/V columns
     from the half-to-even rounding of ``tie_params``'s values (0 is the
     exact match it must give; a bf16 scale other than TIE_UNIT counts as
     128). Runs ``whole_step`` (its plain version with ``plain``; the
-    verify-block mode with ``multi``) on a clone of ``cache``."""
+    verify-block mode with ``multi``, the beams mode with ``beams``) on a
+    clone of ``cache``."""
     from .ops.decode_step import whole_step, whole_step_plain
     tp = tie_params(params, arch)
     work = clone_cache(cache)
     (whole_step_plain if plain else whole_step)(tp, arch, x0, position,
-                                                work, (None,), multi=multi)
+                                                work, (None,), multi=multi,
+                                                beams=beams)
     d = arch.d_model
     n = x0.shape[0] if multi else 1
     b = tp["decoder"]["layers"][0]["self"]["qkv"]["b"].float().cpu()
@@ -365,10 +368,11 @@ def tie_column_error(params, arch: WhisperArch, x0: torch.Tensor,
 
 def random_step_cache(arch: WhisperArch, rows: int, cross: str,
                       ring: int, position: int, gen: torch.Generator,
-                      k_enc: int | None = None):
+                      k_enc: int | None = None, shared_cross: bool = False):
     """A serving cache with random content: an int8 ring filled below
-    ``position`` (zeros from there), an int8 or packed-int4 cross cache,
-    bf16 scales about what quantized N(0, 1) projections give."""
+    ``position`` (zeros from there), an int8 or packed-int4 cross cache
+    (of batch 1 with ``shared_cross``: the beams mode's), bf16 scales
+    about what quantized N(0, 1) projections give."""
     from .models.whisper import DecoderCache, pack_int4
     dev = gen.device
     n, h, dh = arch.decoder_layers, arch.decoder_attention_heads, \
@@ -394,16 +398,28 @@ def random_step_cache(arch: WhisperArch, rows: int, cross: str,
         return x
 
     qmax = 7 if cross == "int4" else 127
+    items = 1 if shared_cross else rows
 
     def cross_half():
-        x = ints((n, rows, h, k_enc, dh), qmax)
+        x = ints((n, items, h, k_enc, dh), qmax)
         return pack_int4(x) if cross == "int4" else x
     return DecoderCache(
         self_k=ring_half(), self_v=ring_half(),
         cross_k=cross_half(), cross_v=cross_half(),
-        cross_k_scale=scales((n, rows, h, k_enc), qmax),
-        cross_v_scale=scales((n, rows, h, k_enc), qmax),
+        cross_k_scale=scales((n, items, h, k_enc), qmax),
+        cross_v_scale=scales((n, items, h, k_enc), qmax),
         self_k_scale=ring_scales(), self_v_scale=ring_scales())
+
+
+def repeat_cross(cache, rows: int):
+    """A clone of ``cache`` whose cross cache of batch 1 is repeated to
+    ``rows`` items: the rows mode's layout of the beams mode's cache."""
+    from dataclasses import replace
+    work = clone_cache(cache)
+    return replace(work, **{
+        name: getattr(work, name).repeat_interleave(rows, 1).contiguous()
+        for name in ("cross_k", "cross_v", "cross_k_scale",
+                     "cross_v_scale")})
 
 
 def clone_cache(cache):
@@ -415,17 +431,18 @@ def clone_cache(cache):
 
 def decode_step_errors(params, arch: WhisperArch, x0: torch.Tensor,
                        position: int, cache, heads,
-                       multi: bool = False) -> dict:
+                       multi: bool = False, beams: bool = False) -> dict:
     """The decode-step kernel (``whole_step``) against ``whole_step_plain``
     on clones of one cache: {name: (max error, band)} for hid, the logits
     of the serving head (``_lm_head``) on each, align and the fresh ring
-    columns (in int8 steps; all M of them with ``multi``)."""
+    columns (in int8 steps; all M of them with ``multi``). ``beams`` runs
+    the beams mode (a cache made with ``shared_cross``)."""
     from .ops.decode_step import _lm_head, whole_step, whole_step_plain
     kc, pc = clone_cache(cache), clone_cache(cache)
     hid, align = whole_step(params, arch, x0, position, kc, heads,
-                            multi=multi)
+                            multi=multi, beams=beams)
     rhid, ralign = whole_step_plain(params, arch, x0, position, pc, heads,
-                                    multi=multi)
+                                    multi=multi, beams=beams)
     dec = params["decoder"]
     logits, rlogits = _lm_head(dec, hid), _lm_head(dec, rhid)
     n = x0.shape[0] if multi else 1
@@ -441,6 +458,24 @@ def decode_step_errors(params, arch: WhisperArch, x0: torch.Tensor,
                    head_rel * rlogits.abs().max().item()),
         "align": ((align - ralign).abs().max().item(), STEP_ALIGN_BAND),
         "columns": (cols, STEP_COLUMN_BAND)}
+
+
+def beams_rows_mismatch(params, arch: WhisperArch, x0: torch.Tensor,
+                        position: int, cache, heads) -> list[str]:
+    """The outputs on which the beams mode (``whole_step(beams=True)`` on
+    ``cache``, made with ``shared_cross``) differs from the rows mode on
+    the same rings with the cross cache repeated per row: hid, align or a
+    ring tensor. Empty when the two agree bit for bit, as they must: only
+    the cross cache's indexing tells the modes apart."""
+    from .ops.decode_step import whole_step
+    a, b = clone_cache(cache), repeat_cross(cache, x0.shape[0])
+    hb, ab = whole_step(params, arch, x0, position, a, heads, beams=True)
+    hr, ar = whole_step(params, arch, x0, position, b, heads)
+    names = ("self_k", "self_v", "self_k_scale", "self_v_scale")
+    return ([n for n, x, y in (("hid", hb, hr), ("align", ab, ar))
+             if not torch.equal(x, y)]
+            + [n for n in names
+               if not torch.equal(getattr(a, n), getattr(b, n))])
 
 
 def ring_write_inputs(arch: WhisperArch, rows: int, s: int, ring: int,
@@ -507,14 +542,17 @@ def ring_write_error(pairs, li: int, positions: torch.Tensor) -> int:
 
 
 def tiny_slice(ckpt: str, params, device: str, audio: np.ndarray,
-               quantize: bool | str = False, assistant: str | None = None
+               quantize: bool | str = False, assistant: str | None = None,
+               num_beams: int = 1, prompt: str | None = None
                ) -> tuple[dict, list[np.ndarray]]:
     """The TINY f32 slice on ``device``: the pipeline's result for
     ``audio`` (word timestamps, adjust_pauses 0.12), and each 5 s chunk's
     tokens. ``quantize="serving"`` also turns on the whole-step decode
     kernel (``b1_decode_kernel``) with 24 new tokens per window, on
     ``params`` with random decoder biases and LayerNorms
-    (``random_affine``, seed 1). ``assistant`` is load_pipeline's."""
+    (``random_affine``, seed 1). ``assistant`` is load_pipeline's;
+    ``num_beams`` > 1 decodes with beam search; ``prompt`` is the
+    pipeline's text prompt, with condition_on_prev_tokens on."""
     from dataclasses import replace
     from .config import PipelineOptions
     from .hub import load_pipeline
@@ -529,13 +567,24 @@ def tiny_slice(ckpt: str, params, device: str, audio: np.ndarray,
     if quantize == "serving":
         pipe.gen_opts = replace(pipe.gen_opts, b1_decode_kernel=True,
                                 max_new_tokens=24)
+    pipe.gen_opts = replace(pipe.gen_opts, num_beams=num_beams,
+                            condition_on_prev_tokens=prompt is not None)
     res = pipe({"raw": audio, "sampling_rate": SR}, return_timestamps="word",
-               adjust_pauses_threshold=0.12)
+               adjust_pauses_threshold=0.12, prompt=prompt)
     stride = round(CHUNK_S / 6 * SR)
     chunks = list(chunk_iter(audio, 0, CHUNK_S * SR, stride, stride))
     toks = [o["tokens"] for o in pipe._run_chunks(chunks, CHUNK_S * SR,
-                                                   "word")]
+                                                   "word", prompt=prompt)]
     return res, toks
+
+
+def token_agreement(ref: list, got: list) -> float:
+    """Token agreement of two runs' chunk tokens over the shorter of the
+    two streams (the reference's measure, tests/test_b1_kernel.py:94)."""
+    r = np.concatenate([np.asarray(t).reshape(-1) for t in ref])
+    g = np.concatenate([np.asarray(t).reshape(-1) for t in got])
+    n = min(len(r), len(g))
+    return float((r[:n] == g[:n]).mean()) if n else 0.0
 
 
 def slice_timestamp_gap(ref: tuple[dict, list[np.ndarray]],

@@ -1,6 +1,6 @@
 """PyTorch port on the card: each kernel against its plain version, and
-the TINY slice (plain, quantized serving and speculative) on CUDA against
-the same slice on the CPU.
+the TINY slice (plain, quantized serving, speculative, beam search and
+prompting) on CUDA against the same slice on the CPU.
 
 The comparisons and their bands are crisperwhisper_tpu_torch.testing's,
 which chip_smoke.py runs too. Every test carries the ``gpu`` marker and
@@ -271,3 +271,79 @@ def test_tiny_assisted_slice_on_card(gen, tmp_path, seconds, quantize,
     assert after[kernel] > before[kernel]
     assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND
     assert testing.slice_timestamp_gap(greedy, gpu) <= testing.TS_BAND
+
+
+@pytest.mark.parametrize("rows,cross,position", [
+    (2, "int8", 0), (3, "int4", 17), (5, "int4", 60), (8, "int8", 95)])
+def test_decode_step_beams_kernel_matches_plain(gen, tiny_quant, rows, cross,
+                                                position):
+    """The beams mode (R beams, per-row rings, one cross cache of batch
+    1): hid, logits, alignment and fresh columns within testing's bands,
+    one beams-mode launch per call."""
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, rows, cross, 96, position, gen,
+                                      shared_cross=True)
+    x0 = torch.randn((rows, arch.d_model), generator=gen, device="cuda")
+    before = whole_step.mode_launches["beams"]
+    errs = testing.decode_step_errors(params, arch, x0, position, cache,
+                                      ((0, 1), (1, 3), (0, 2)), beams=True)
+    assert whole_step.mode_launches["beams"] == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+
+
+@pytest.mark.parametrize("rows,cross,position", [
+    (2, "int8", 0), (5, "int4", 40), (8, "int4", 95)])
+def test_decode_step_beams_equals_rows_on_repeated_cross(gen, tiny_quant, rows,
+                                                         cross, position):
+    """The beams mode is the rows mode with the cross cache shared: on the
+    cross cache repeated per row, the rows mode gives the same hid,
+    alignment and rings, bit for bit."""
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, rows, cross, 96, position, gen,
+                                      shared_cross=True)
+    x0 = torch.randn((rows, arch.d_model), generator=gen, device="cuda")
+    assert testing.beams_rows_mismatch(params, arch, x0, position, cache,
+                                       ((0, 1), (1, 3))) == []
+
+
+@pytest.mark.parametrize("rows,cross,position", [(3, "int8", 0),
+                                                 (5, "int4", 33)])
+def test_decode_step_beams_kernel_rounds_ties_half_to_even(gen, tiny_quant,
+                                                           rows, cross,
+                                                           position):
+    arch, params = tiny_quant
+    cache = testing.random_step_cache(arch, rows, cross, 96, position, gen,
+                                      shared_cross=True)
+    x0 = torch.randn((rows, arch.d_model), generator=gen, device="cuda")
+    assert testing.tie_column_error(params, arch, x0, position, cache,
+                                    beams=True) == 0
+
+
+@pytest.mark.parametrize("seconds,quantize,kw", [
+    (12.0, False, dict(num_beams=4)),
+    (12.0, False, dict(prompt="hello world")),
+    (5.0, "serving", dict(num_beams=4))])
+def test_tiny_beam_and_prompt_slices_on_card(gen, tmp_path, seconds, quantize,
+                                             kw):
+    """Beam search (4 beams) and a text prompt with conditioning on the
+    card give the CPU's tokens and words; one serving window with 4 beams
+    runs the beams mode with token agreement with the CPU of at least 0.9
+    (the kernel and its plain version agree within bands, not bit for
+    bit)."""
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    params = init_params(WhisperArch(**testing.TINY),
+                         torch.Generator().manual_seed(0))
+    audio = testing.tone_audio(seconds, 0)
+    cpu = testing.tiny_slice(ckpt, params, "cpu", audio, quantize, **kw)
+    before = whole_step.mode_launches["beams"]
+    gpu = testing.tiny_slice(ckpt, params, "cuda", audio, quantize, **kw)
+    if quantize:
+        assert whole_step.mode_launches["beams"] > before
+        assert testing.token_agreement(cpu[1], gpu[1]) >= 0.9
+    else:
+        assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND

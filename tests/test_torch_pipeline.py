@@ -1,6 +1,6 @@
 """PyTorch port: processors, greedy decode, the whole slice (hub ->
 pipeline -> CLI) against the JAX package on the TINY checkpoint, and the
-port's boundaries (unported options, verbatim copies)."""
+port's boundaries (device defaults, verbatim copies)."""
 
 import inspect
 import json
@@ -181,10 +181,29 @@ def test_cli_json_adjust_pauses(tiny, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--num-beams", "4"], 11), (["--prompt", "hello"], 12)])
-def test_cli_rejects_unported_flags(tiny, capsys, flags, item):
+def test_cli_rejects_unported_flags(tiny, capsys, monkeypatch, flags, item):
+    """--num-beams and --prompt (once refused; ported with ROADMAP queue 1
+    item ``item``) transcribe, and the JSON equals the JAX CLI's on the
+    same checkpoint and flags. Both CLIs load at f32 here: at their
+    default bf16 the beams of this random-weight model differ in rounding
+    and pick other hypotheses among candidates 0.01-0.07 apart."""
+    import functools
+    from crisperwhisper_tpu import hub as jax_hub
+    from crisperwhisper_tpu.cli import main as jax_main
+    from crisperwhisper_tpu_torch import hub
     from crisperwhisper_tpu_torch.cli import main
-    assert main(["--f", tiny["wav"], "--model", tiny["ckpt"], *flags]) == 1
-    assert f"item {item}" in capsys.readouterr().out
+    for mod, f32 in ((jax_hub, jnp.float32), (hub, torch.float32)):
+        monkeypatch.setattr(mod, "load_pipeline", functools.partial(
+            mod.load_pipeline, dtype=f32))
+    args = ["--f", tiny["wav"], "--model", tiny["ckpt"], "--chunk-length-s",
+            str(CHUNK_S), "--json", *flags]
+    outs = []
+    for run, extra in ((jax_main, []), (main, ["--device", "cpu"])):
+        rc = run(args + extra)
+        out = capsys.readouterr().out.strip().splitlines()[-1]
+        assert rc == 0, out
+        outs.append(json.loads(out))
+    assert outs[1] == outs[0] and len(outs[1]["chunks"]) > 0
 
 
 def test_cli_assistant_prompt_lookup(tiny, capsys):
@@ -216,12 +235,24 @@ def test_cli_runs_on_the_card_by_default(tiny, capsys, monkeypatch):
     {"condition_on_prev_tokens": True},
     {"num_beams": 3, "prompt_lookup": True}])
 def test_unported_options_raise(tiny, change):
+    """The options once refused run and give the JAX generate's output
+    (one row, 2.5 windows): beams, a user prompt, conditioning, and beams
+    with prompt lookup, which take the beam path (longform.py:76-80)."""
+    from crisperwhisper_tpu.decoding import generate as jax_generate
     from crisperwhisper_tpu_torch.decoding.longform import generate
-    tp = tiny["torch"]
-    feats = torch.from_numpy(rand_mel(batch=1, seed=9))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        generate(tp.params, tp.arch, tp.specials,
-                 replace(tp.gen_opts, **change), feats)
+    jp, tp = tiny["jax"], tiny["torch"]
+    assistant = "prompt_lookup" if change.get("prompt_lookup") else None
+    mel = rand_mel(batch=1, seed=9, frames=1250)
+    ref = jax_generate(jp.params, jp.arch, jp.specials,
+                       replace(jp.gen_opts, **change), jnp.asarray(mel),
+                       assistant=assistant)
+    got = generate(tp.params, tp.arch, tp.specials,
+                   replace(tp.gen_opts, **change), torch.from_numpy(mel),
+                   assistant=assistant)
+    np.testing.assert_array_equal(got.sequences, ref.sequences)
+    np.testing.assert_allclose(got.token_timestamps, ref.token_timestamps,
+                               atol=TS_BAND)
+    assert len(got.segments[0]) == len(ref.segments[0]) > 0
 
 
 @pytest.mark.parametrize("kw", [{"assistant": "draft:tiny"}])
