@@ -7,8 +7,9 @@ Phases, one line each on stdout:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from crisperwhisper_tpu_torch/csrc (one nvcc
      per source, in parallel; ptxas registers and spills of the
-     decode-step kernel) and import the Triton module (Triton compiles at
-     the first launch, in phase 2);
+     decode-step kernel and of the log-mel, decode-attention and probe
+     kernels) and import the Triton module (Triton compiles at the first
+     launch, in phase 2);
   2. each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the maximum error and both times (the
      comparisons and bands of crisperwhisper_tpu_torch.testing, which
@@ -27,10 +28,18 @@ Phases, one line each on stdout:
      ring-write kernel at large-v3 width, batch 16, 5 columns a row, for
      bf16, int8 (with scales) and packed int4 rings, bit-identical to its
      plain version, timed per call and, replayed from a CUDA graph, on
-     the device alone. Each timed kernel also prints its bound (the bytes
-     it must move over 3.35 TB/s, or its operations over the peak rate
-     of their type, whichever is larger) and the time of the one PyTorch
-     call that computes the same function, where there is one;
+     the device alone; the fused log-mel at the CLI's batch of 16 windows
+     x 128 mels (beside extract_features, torch.stft); the int8 cross
+     attention of v1 and v2 at B = 16, H = 20, K = 1500 with an f32 q; the
+     stacked-cache attention (v3) at the reference microbench's shape (L
+     = 2, B = 64, H = 20, T = 1536, sel of 15 heads) for int8, int4 and
+     bf16 caches; the probe kernel, exact. Each timed kernel also prints
+     its bound (the bytes it must move over 3.35 TB/s, or its operations
+     over the peak rate of their type, whichever is larger; for the
+     log-mel the operations of an FFT, and its own design's DFT product
+     beside them) and the time
+     of the one PyTorch call that computes the same function, where there
+     is one;
   3. the TINY f32 slice on the card against the same slice on the CPU
      (plain versions), same seeded weights: tokens equal, word
      timestamps within 0.02 s; then the quantized serving slice with the
@@ -71,11 +80,22 @@ Phases, one line each on stdout:
      printed beside it, (c)
      pipe(audio, prompt=...) on the 12 s array. Each prints its wall
      beside the greedy wall of the same request and the launches by
-     kernel and mode (counts reset just before each request).
+     kernel and mode (counts reset just before each request);
+  8. the remaining entry points at large-v3 width, on the main path's
+     data, every count reset just before each part and read just after:
+     (a) fused_log_mel on the windows ASRPipeline cuts from the 60 s WAV,
+     against extract_features and the plain twin, and the encoder states
+     of both feature batches compared (informative); (b) v1 and v2 on
+     every layer of the int8 cross cache init_cache builds from that
+     encoder output; (c) v3 on the stacked int8 and int4 cross caches of
+     all 32 layers (sel of each layer's alignment heads) and on an int8
+     self ring of 448 slots at position 60 with left pads; (d) the probe
+     ladder's card rungs, in process and as
+     ``python -m crisperwhisper_tpu_torch.probe plain,probe_add``.
 Then a JSON line with one entry per kernel (launches: phase 4 for the
 first three, phases 5, 6 and 7 for the decode step, phase 6 (a) for the
-ring write), the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}.
+ring write, phase 8 for the other five), the card's name and power limit,
+and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without that last line, when no CUDA card is present, when
 the port cannot be imported, or when any phase fails. Imports no JAX and,
@@ -186,6 +206,30 @@ def _step_work(params, arch, cache, position: int, m: int, multi: bool,
     return weights + vec + cross + ring + io, ops
 
 
+def _log_mel_work(cfg, wave) -> tuple[float, float, float]:
+    """(bytes, f32 operations) that the log-mel function needs on ``wave``
+    [B, n_samples], and the operations of the kernel's own design. The
+    function: each sample read once, each feature written once, the mel
+    bank's nonzero weights read once; per frame the window (one multiply
+    a tap), a real FFT of n_fft points (2.5 n log2 n, half the 5 n log2 n
+    of a complex FFT), the power (3 a bin), the mel sums over the bank's
+    nonzeros (2 each; a bin falls in at most two filters), and log10, the
+    clip and the affine step (4 a feature). The design: the DFT as a
+    product with the [n_fft, 2 n_bins] basis and a dense mel product, two
+    operations a multiply-add."""
+    import math
+
+    from crisperwhisper_tpu_torch.audio import fused_mel as fm
+    n_bins, n_mels = cfg.n_fft // 2 + 1, cfg.feature_size
+    frames = wave.shape[0] * cfg.nb_max_frames
+    nonzero = int((fm._tables(cfg, wave.device)[1] != 0).sum())
+    n_bytes = _nbytes(wave) + 4 * (frames * n_mels + nonzero)
+    ops = frames * (cfg.n_fft + 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
+                    + 3 * n_bins + 2 * nonzero + 4 * n_mels)
+    dft_ops = 2 * frames * (cfg.n_fft * 2 * n_bins + n_bins * n_mels)
+    return n_bytes, ops, dft_ops
+
+
 def phase0_device() -> str:
     import torch
     smi = subprocess.run(
@@ -212,6 +256,10 @@ def phase1_build() -> None:
           flush=True)
     print("phase 1 decode_step.cu: " + "; ".join(
         _ptxas_summary(kern.ptxas_log, "decode_step_kernel")), flush=True)
+    print("phase 1 log_mel.cu, decode_attention.cu, probe.cu: " + "; ".join(
+        sum((_ptxas_summary(kern.ptxas_log, name) for name in (
+            "log_mel_kernel", "decode_attention_kernel",
+            "probe_add_kernel")), [])), flush=True)
 
 
 def _ptxas_summary(log: str, kernel: str) -> list[str]:
@@ -491,6 +539,150 @@ def phase2_kernels(large) -> list[dict]:
     return entries
 
 
+def phase2_remaining(large) -> list[dict]:
+    """The kernels of the remaining entry points against their plain
+    versions on the card: the fused log-mel at the CLI's batch of 16
+    windows x 128 mels, the v1 and v2 cross attention at B = 16, the
+    stacked-cache attention at the reference microbench's shape for int4,
+    int8 and bf16 caches, and the probe."""
+    import torch
+    from crisperwhisper_tpu_torch import probe, testing
+    from crisperwhisper_tpu_torch.audio import fused_mel as fm
+    from crisperwhisper_tpu_torch.audio.mel import extract_features
+    from crisperwhisper_tpu_torch.config import FeatureConfig
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+
+    arch, _ = large
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    entries = []
+
+    # --- the fused log-mel: 16 windows of a tone in noise, 128 mels
+    cfg = FeatureConfig(feature_size=arch.num_mel_bins)
+    t = torch.arange(cfg.n_samples, device=dev) / testing.SR
+    wave = (0.2 * torch.sin(2 * torch.pi * 300 * t)[None]
+            + 0.1 * torch.randn((16, cfg.n_samples), generator=gen,
+                                device=dev)).contiguous()
+    errs, _ = testing.mel_errors(wave, cfg)
+    for name, (err, band) in errs.items():
+        _require(err <= band, f"log_mel against {name}: max err {err} > "
+                              f"{band}")
+    ms = _time_ms(lambda: fm.fused_log_mel(wave, cfg), 20)
+    plain_ms = _time_ms(lambda: fm.log_mel_plain(wave, cfg), 5)
+    lib_ms = _time_ms(lambda: extract_features(wave, cfg), 20)
+    n_bytes, ops, dft_ops = _log_mel_work(cfg, wave)
+    bound, by = _bound(n_bytes, ops, "f32")
+    print(f"phase 2 log_mel: [16, {cfg.n_samples}] -> [16, "
+          f"{cfg.feature_size}, {cfg.nb_max_frames}] err against the plain "
+          f"twin {errs['plain'][0]:.3g}, against extract_features "
+          f"{errs['stft'][0]:.3g} (band {testing.MEL_BAND}); {ms:.3f} ms vs "
+          f"plain {plain_ms:.3f} ms, extract_features (torch.stft) "
+          f"{lib_ms:.3f} ms, bound {bound:.4f} ms ({by}: {n_bytes / 1e6:.1f} "
+          f"MB; {ops / 1e9:.3f} GFLOP with an FFT); the kernel's own design, "
+          f"the DFT as a product with the basis and a dense mel product, "
+          f"does {dft_ops / 1e9:.1f} GFLOP, "
+          f"{dft_ops / PEAK_OPS_PER_MS['f32']:.4f} ms at the f32 peak",
+          flush=True)
+    entries.append({
+        "name": "log_mel", "route": "cuda",
+        "source": "crisperwhisper_tpu_torch/csrc/log_mel.cu",
+        "replaces": "crisperwhisper_tpu/audio/pallas_mel.py:59",
+        "max_abs_err": max(errs["plain"][0], errs["stft"][0]), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": lib_ms})
+    del wave
+
+    # --- v1 and v2: one f32 query per (row, head) over an int8 cache
+    q, k, ks, v, vs = testing.decode_attention_inputs(
+        (16, 20, 1500, 64), "int8", gen, torch.float32)
+    args = (q[:, :, None], k, ks[..., None], v, vs[..., None])
+    out_b, probs_b = 4 * q.numel(), 4 * 16 * 20 * 1500
+    bound, by = _bound(_nbytes(*args) + out_b + probs_b,
+                       4 * k.numel(), "f32")
+    for name, fn, v2, replaces in (
+            ("cross_attention_int8", da.cross_attention_int8, False,
+             "experiments/decode_attention_v1.py:26"),
+            ("cross_attention_int8_v2", da.cross_attention_int8_v2, True,
+             "experiments/decode_attention_v2.py:21")):
+        errs = testing.cross_attention_errors(*args, v2=v2)
+        for key, (err, band) in errs.items():
+            _require(err <= band, f"{name}: {key} max err {err} > {band}")
+        ms = _time_ms(lambda: fn(*args), 20)
+        plain_ms = _time_ms(lambda: da.cross_attention_int8_plain(
+            *args, q_bf16=v2), 20)
+        print(f"phase 2 {name}: q f32 [16, 20, 1, 64], int8 K/V [16, 20, "
+              f"1500, 64]: " + ", ".join(f"{key} err {e:.3g} (band "
+                                         f"{b:.3g})"
+                                         for key, (e, b) in errs.items())
+              + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), no single library call", flush=True)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "crisperwhisper_tpu_torch/csrc/decode_attention.cu",
+            "replaces": replaces, "max_abs_err": errs["out"][0], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    del q, k, ks, v, vs, args
+
+    # --- v3 at the reference microbench's shape (decode_gemv_v3.py:274)
+    sel = torch.zeros((20, testing.LARGE_V3_ALIGN_HEADS), device=dev)
+    for a in range(testing.LARGE_V3_ALIGN_HEADS):
+        sel[a % 20, a] = 1.0
+    rows = []
+    for kind in ("int8", "int4", "bf16"):
+        q, k, ks, v, vs = testing.decode_attention_inputs(
+            (2, 64, 20, 1536, 64), kind, gen, torch.bfloat16)
+        kw = dict(sel=sel) if kind == "bf16" else dict(k_scale=ks,
+                                                       v_scale=vs, sel=sel)
+        errs = testing.decode_gemv_errors(q, k, v, 1, **kw)
+        for key, (err, band) in errs.items():
+            _require(err <= band, f"decode_gemv_attention {kind}: {key} max "
+                                  f"err {err} > {band}")
+        ms = _time_ms(lambda: da.decode_gemv_attention(q, k, v, 1, **kw), 20)
+        plain_ms = _time_ms(lambda: da.decode_gemv_plain(q, k, v, 1, **kw),
+                            5)
+        layer = [x[1] for x in (k, v) + ((ks, vs) if kind != "bf16" else ())]
+        bound, by = _bound(_nbytes(q, sel, *layer) + 4 * q.numel()
+                           + 4 * 64 * sel.shape[1] * 1536,
+                           4 * 64 * 20 * 1536 * 64, "f32")
+        rows.append(f"{kind} " + ", ".join(
+            f"{key} err {e:.3g} (band {b:.3g})"
+            for key, (e, b) in errs.items())
+            + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+        if kind == "int8":
+            entries.append({
+                "name": "decode_gemv_attention", "route": "cuda",
+                "source": "crisperwhisper_tpu_torch/csrc/decode_attention.cu",
+                "replaces": "experiments/decode_gemv_v3.py:74",
+                "max_abs_err": errs["out"][0], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None})
+        del q, k, ks, v, vs
+    print("phase 2 decode_gemv_attention: q bf16 [64, 20, 64], layer 1 of "
+          "[2, 64, 20, 1536, 64] caches, sel of 15 heads: " + "; ".join(rows)
+          + "; no single library call", flush=True)
+
+    # --- the probe: x * 2 on one (8, 128) f32 tile, exact
+    x = torch.randn((8, 128), generator=gen, device=dev)
+    err = int((probe.probe_add(x) != x * 2.0).sum())
+    _require(err == 0, f"probe_add: {err} values differ from x * 2")
+    ms = _time_ms(lambda: probe.probe_add(x), 200)
+    plain_ms = _time_ms(lambda: x * 2.0, 200)
+    lib_ms = _time_ms(lambda: torch.mul(x, 2.0), 200)
+    bound, by = _bound(2 * _nbytes(x), x.numel(), "f32")
+    print(f"phase 2 probe_add: [8, 128] f32 exact; {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, torch.mul {lib_ms:.4f} ms, bound "
+          f"{bound:.7f} ms ({by})", flush=True)
+    entries.append({
+        "name": "probe_add", "route": "cuda",
+        "source": "crisperwhisper_tpu_torch/csrc/probe.cu",
+        "replaces": "scripts/probe_pallas_compile.py:51",
+        "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
+    return entries
+
+
 def phase3_tiny(tmp: str) -> None:
     import torch
     from crisperwhisper_tpu_torch import testing
@@ -690,32 +882,41 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
     return launches
 
 
-def _reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
+def _wrappers() -> dict:
+    """Every kernel wrapper by the kernel's name in the JSON line."""
+    from crisperwhisper_tpu_torch import probe
+    from crisperwhisper_tpu_torch.audio import fused_mel as fm
     from crisperwhisper_tpu_torch.ops import align_prep as ap
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
     from crisperwhisper_tpu_torch.ops import decode_step as ds
     from crisperwhisper_tpu_torch.ops import dtw as dt
     from crisperwhisper_tpu_torch.ops import fused_attention as fa
     from crisperwhisper_tpu_torch.ops import ring_write as rw
-    for wrapper in (fa.fused_attention, ap.align_prep, dt.dtw, ds.whole_step,
-                    rw.write_block_columns_group):
+    return {"encoder_attention": fa.fused_attention,
+            "align_prep": ap.align_prep, "dtw": dt.dtw,
+            "decode_step": ds.whole_step,
+            "ring_write": rw.write_block_columns_group,
+            "log_mel": fm.fused_log_mel,
+            "cross_attention_int8": da.cross_attention_int8,
+            "cross_attention_int8_v2": da.cross_attention_int8_v2,
+            "decode_gemv_attention": da.decode_gemv_attention,
+            "probe_add": probe.probe_add}
+
+
+def _reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from crisperwhisper_tpu_torch.ops import decode_step as ds
+    for wrapper in _wrappers().values():
         wrapper.launches = 0
     ds.whole_step.mode_launches = dict.fromkeys(ds.MODES, 0)
 
 
 def _counts() -> dict[str, int]:
     """Launches by kernel, the decode step also by mode."""
-    from crisperwhisper_tpu_torch.ops import align_prep as ap
     from crisperwhisper_tpu_torch.ops import decode_step as ds
-    from crisperwhisper_tpu_torch.ops import dtw as dt
-    from crisperwhisper_tpu_torch.ops import fused_attention as fa
-    from crisperwhisper_tpu_torch.ops import ring_write as rw
-    return {"encoder_attention": fa.fused_attention.launches,
-            "align_prep": ap.align_prep.launches, "dtw": dt.dtw.launches,
-            "decode_step": ds.whole_step.launches,
+    return {**{name: w.launches for name, w in _wrappers().items()},
             **{f"decode_step_{m}": n
-               for m, n in ds.whole_step.mode_launches.items()},
-            "ring_write": rw.write_block_columns_group.launches}
+               for m, n in ds.whole_step.mode_launches.items()}}
 
 
 def phase5_serving(tmp: str, large) -> int:
@@ -921,6 +1122,169 @@ def phase7_beams_prompts(tmp: str, large) -> int:
     return total
 
 
+def _pipeline_windows(pipe, wav: str):
+    """The first device batch that ``pipe`` cuts from ``wav``, as
+    ASRPipeline._run_chunks forms it: chunk_iter's 30 s windows at the
+    pipeline's strides, zero padded, in a batch rounded up to a power of
+    2."""
+    import numpy as np
+    import torch
+    from crisperwhisper_tpu_torch.audio.io import load_audio
+    from crisperwhisper_tpu_torch.pipeline.asr import chunk_iter
+    sr = pipe.feat_cfg.sampling_rate
+    n_samples = int(round(pipe.pipe_opts.chunk_length_s * sr))
+    left, right = (int(round(x * sr)) for x in pipe.pipe_opts.strides())
+    chunks = list(chunk_iter(load_audio(wav, sr), 0, n_samples, left,
+                             right))[:pipe.pipe_opts.batch_size]
+    batch = np.zeros((min(1 << max(len(chunks) - 1, 0).bit_length(),
+                          pipe.pipe_opts.batch_size), n_samples), np.float32)
+    for i, c in enumerate(chunks):
+        batch[i, :len(c.samples)] = c.samples
+    return torch.from_numpy(batch).cuda(), len(chunks)
+
+
+def phase8_remaining(tmp: str, large) -> dict[str, int]:
+    """The remaining entry points at large-v3 width, on the data of the
+    main path, each part with every launch count reset just before and
+    read just after. Returns the launches of each new kernel."""
+    import torch
+    from crisperwhisper_tpu_torch import probe, testing
+    from crisperwhisper_tpu_torch.audio import fused_mel as fm
+    from crisperwhisper_tpu_torch.audio.mel import extract_features
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.models.whisper import (alignment_selector,
+                                                         encode, init_cache)
+
+    arch, params = large
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    pipe = load_pipeline(_large_ckpt(tmp, arch), params=params, device="cuda",
+                         language="en")
+    (wav, _), _ = _large_requests(tmp)
+    launches = {}
+
+    def part(name: str, kernels: tuple[str, ...], fn):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = _counts()
+        for k in kernels:
+            _require(counts[k] > 0, f"phase 8 ({name}): kernel {k} was not "
+                                    "launched")
+            launches[k] = counts[k]
+        return out
+
+    # (a) the fused log-mel on the windows ASRPipeline cuts from the WAV
+    batch, n_windows = _pipeline_windows(pipe, wav)
+    cfg = pipe.feat_cfg
+    feats = part("a", ("log_mel",), lambda: fm.fused_log_mel(batch, cfg))
+    stft = extract_features(batch, cfg)
+    err_stft = (feats - stft).abs().max().item()
+    err_plain = (feats - fm.log_mel_plain(batch, cfg)).abs().max().item()
+    _require(max(err_stft, err_plain) <= testing.MEL_BAND,
+             f"phase 8 (a): log-mel err {err_stft} (stft), {err_plain} "
+             f"(plain) > {testing.MEL_BAND}")
+    enc = encode(params, arch, feats)
+    enc_gap = (enc.float() - encode(params, arch, stft).float()).abs().max()
+    print(f"phase 8 (a): fused_log_mel on the {n_windows} windows "
+          f"ASRPipeline cuts from the 60 s WAV (batch "
+          f"{list(batch.shape)}, {cfg.feature_size} mels): err against "
+          f"extract_features {err_stft:.3g}, against the plain twin "
+          f"{err_plain:.3g} (band {testing.MEL_BAND}); large-v3 encoder "
+          f"states from the two feature batches differ by up to "
+          f"{enc_gap.item():.4g} (bf16, informative); launches "
+          f"{launches['log_mel']}", flush=True)
+
+    # (b) v1 and v2 on every layer of the int8 cross cache of that output
+    cache = init_cache(params, arch, enc, cross_dtype="int8", cache_len=1)
+    b, h = enc.shape[0], arch.decoder_attention_heads
+
+    def cross_layers():
+        worst = {}
+        for li in range(arch.decoder_layers):
+            q = (torch.randn((b, h, 1, arch.head_dim), generator=gen,
+                             device="cuda") / 8).to(torch.bfloat16)
+            args = (q, cache.cross_k[li], cache.cross_k_scale[li][..., None],
+                    cache.cross_v[li], cache.cross_v_scale[li][..., None])
+            for v2 in (False, True):
+                errs = testing.cross_attention_errors(*args, v2=v2)
+                for key, (err, band) in errs.items():
+                    _require(err <= band, f"phase 8 (b) layer {li} v2={v2}: "
+                                          f"{key} max err {err} > {band}")
+                    tag = f"{'v2' if v2 else 'v1'} {key}"
+                    worst[tag] = max(worst.get(tag, 0.0), err / band)
+        return worst
+    worst = part("b", ("cross_attention_int8", "cross_attention_int8_v2"),
+                 cross_layers)
+    print(f"phase 8 (b): cross_attention_int8 / _v2 on all "
+          f"{arch.decoder_layers} layers of the int8 cross cache "
+          f"{list(cache.cross_k.shape)} of that encoder output, bf16 q: "
+          f"worst err / band " + ", ".join(f"{k} {r:.3g}"
+                                           for k, r in worst.items())
+          + f"; launches {launches['cross_attention_int8']} + "
+          f"{launches['cross_attention_int8_v2']}", flush=True)
+
+    # (c) v3 on the stacked int8 and int4 cross caches (alignment heads of
+    # each layer) and on an int8 self ring of 448 slots at position 60
+    sel = torch.from_numpy(alignment_selector(
+        arch, testing.large_v3_align_heads(arch))).cuda()
+    caches = {"int8": cache, "int4": init_cache(params, arch, enc,
+                                                cross_dtype="int4",
+                                                cache_len=1)}
+    ring = testing.random_step_cache(arch, b, "int8", 448, 61, gen, k_enc=1)
+    pads = torch.arange(448, device="cuda")[None] \
+        < 3 * torch.arange(b, device="cuda")[:, None]     # row r: 3r pads
+
+    def gemv_layers():
+        worst = {}
+        for li in range(arch.decoder_layers):
+            q = (torch.randn((b, h, arch.head_dim), generator=gen,
+                             device="cuda") / 8).to(torch.bfloat16)
+            runs = [(kind, (q, c.cross_k, c.cross_v, li),
+                     dict(k_scale=c.cross_k_scale, v_scale=c.cross_v_scale,
+                          sel=sel[li])) for kind, c in caches.items()]
+            runs.append(("self ring", (q, ring.self_k, ring.self_v, li),
+                         dict(k_scale=ring.self_k_scale,
+                              v_scale=ring.self_v_scale, position=60,
+                              key_mask=~pads)))
+            for kind, args, kw in runs:
+                for key, (err, band) in testing.decode_gemv_errors(
+                        *args, **kw).items():
+                    _require(err <= band, f"phase 8 (c) {kind} layer {li}: "
+                                          f"{key} max err {err} > {band}")
+                    tag = f"{kind} {key}"
+                    worst[tag] = max(worst.get(tag, 0.0), err / band)
+        return worst
+    worst = part("c", ("decode_gemv_attention",), gemv_layers)
+    print(f"phase 8 (c): decode_gemv_attention on all "
+          f"{arch.decoder_layers} layers of the stacked int8 and int4 cross "
+          f"caches (sel of each layer's alignment heads) and of an int8 "
+          f"self ring of 448 slots at position 60 with left pads: worst "
+          f"err / band " + ", ".join(f"{k} {r:.3g}" for k, r in worst.items())
+          + f"; launches {launches['decode_gemv_attention']}", flush=True)
+    del cache, caches, ring
+
+    # (d) the probe ladder's card rungs, in this process (for the launch
+    # count) and as the module's command line
+    rc = part("d", ("probe_add",), lambda: probe.main(["plain,probe_add"]))
+    _require(rc == 0, f"phase 8 (d): probe ladder exit code {rc}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "crisperwhisper_tpu_torch.probe",
+         "plain,probe_add"], capture_output=True, text=True, cwd=HERE,
+        env={**os.environ, "PYTHONPATH": HERE}, timeout=300)
+    _require(cli.returncode == 0 and "PROBE plain: OK" in cli.stdout
+             and "PROBE probe_add: OK" in cli.stdout,
+             f"phase 8 (d): python -m crisperwhisper_tpu_torch.probe exited "
+             f"{cli.returncode}: {cli.stdout}{cli.stderr}")
+    print("phase 8 (d): python -m crisperwhisper_tpu_torch.probe "
+          "plain,probe_add: " + " | ".join(
+              ln for ln in cli.stdout.splitlines() if ln.startswith("PROBE"))
+          + f"; launches {launches['probe_add']} (in process)", flush=True)
+    print(f"phase 8 ok: the remaining entry points at large-v3 width in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _large_params():
     import torch
     from crisperwhisper_tpu_torch.config import WhisperArch
@@ -951,13 +1315,14 @@ def main() -> int:
         card = phase0_device()
         phase1_build()
         large = _large_params()
-        entries = phase2_kernels(large)
+        entries = phase2_kernels(large) + phase2_remaining(large)
         with tempfile.TemporaryDirectory(prefix="cw_smoke_") as tmp:
             phase3_tiny(tmp)
             launches = phase4_large(tmp, large)
             launches["decode_step"] = phase5_serving(tmp, large)
             spec = phase6_speculative(tmp, large)
             launches["decode_step"] += phase7_beams_prompts(tmp, large)
+            launches.update(phase8_remaining(tmp, large))
         launches["decode_step"] += spec["decode_step"]
         launches["ring_write"] = spec["ring_write"]
         _require(not any(m.split(".")[0] in ("jax", "crisperwhisper_tpu")

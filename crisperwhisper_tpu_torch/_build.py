@@ -12,7 +12,9 @@ rebuilt and an unchanged one is loaded as it is.
 No ``--use_fast_math``: the DTW kernel must match its plain version
 exactly, and its tie-breaks depend on IEEE adds and compares; the
 attention and decode-step kernels use the precise ``expf``, ``erff`` and
-division.
+division; the log-mel kernel's DFT feeds ``log10f``, where approximate
+arithmetic would show in the quiet bins. ``compile_object`` compiles one
+source alone (the probe ladder runs it a source at a time).
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
 raises on anything but 0, because a refused launch never runs and a later
@@ -28,6 +30,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -35,7 +38,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("encoder_attention.cu", "dtw.cu", "decode_step.cu",
-           "ring_write.cu")
+           "ring_write.cu", "log_mel.cu", "decode_attention.cu", "probe.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -67,6 +70,19 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def compile_object(source: Path, obj: Path) -> str:
+    """Compile one CUDA source to an object file with ``nvcc`` and return
+    its log (ptxas registers and spills). Raises a RuntimeError that names
+    the source when nvcc refuses it."""
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                           str(source)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name} (exit code "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    return proc.stdout
+
+
 def _build() -> tuple[Path, float, str]:
     """Compile every source to an object with one ``nvcc`` each, all
     started together (the first build is on the smoke's clock), then link
@@ -80,16 +96,11 @@ def _build() -> tuple[Path, float, str]:
     tmp = so.with_name(f"{tag}.so.tmp")
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(CSRC / name)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for name, obj in zip(SOURCES, objs)]
     try:
-        logs = [proc.communicate()[0] for proc in procs]
-        for name, proc, log in zip(SOURCES, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name} (exit code "
-                                   f"{proc.returncode}):\n{log}")
+        # each thread waits on its own nvcc process, so they run together
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(compile_object,
+                                 [CSRC / n for n in SOURCES], objs))
         link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
                                str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
@@ -121,6 +132,16 @@ def kernels() -> Kernels:
     lib.cw_ring_write.argtypes = [ptr] * 8 + [i32] * 9 + [ptr] + [i32] * 5 \
         + [ptr]
     lib.cw_ring_write.restype = i32
+    lib.cw_log_mel.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.cw_log_mel.restype = i32
+    for entry in (lib.cw_cross_attention_int8,
+                  lib.cw_cross_attention_int8_v2):
+        entry.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        entry.restype = i32
+    lib.cw_decode_gemv_attention.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
+    lib.cw_decode_gemv_attention.restype = i32
+    lib.cw_probe_add.argtypes = [ptr, ptr, i32, ptr]
+    lib.cw_probe_add.restype = i32
     lib.cw_error_string.argtypes = [i32]
     lib.cw_error_string.restype = ctypes.c_char_p
     return Kernels(lib=lib, path=path, build_seconds=seconds, ptxas_log=log)

@@ -1,0 +1,263 @@
+"""Single-query decode attention over a quantized cache: the hand-written
+CUDA kernel of the three experiment kernels, and their plain twins.
+
+Ports of experiments/decode_attention_v1.py (``cross_attention_int8``),
+experiments/decode_attention_v2.py (``cross_attention_int8_v2``) and
+experiments/decode_gemv_v3.py (``decode_gemv_attention``). The three are
+one function with different rounding points (csrc/decode_attention.cu):
+
+  * ``cross_attention_int8``: q used in its own dtype, the scaled
+    probabilities rounded to bf16 before P.V; returns (out [B, H, 1, D] in
+    q's dtype, probs [B, H, K] f32);
+  * ``cross_attention_int8_v2``: the same with q rounded to bf16 first;
+  * ``decode_gemv_attention``: one layer of a stacked cache, the products
+    and the P.V operand in q's dtype, optional scales, causal ``position``
+    mask, ``key_mask`` and alignment selector ``sel``; returns out
+    [B, H, D] f32 (and the aligned rows [B, A, T] f32 with ``sel``).
+
+``decode_gemv_attention`` takes the port's cache layout, not the TPU's
+sequence-last [L, B, H, Dh, T]: the caches that ``models.whisper.
+init_cache`` builds, [L, B, H, T, Dh] in int8, bf16 or f32, or packed int4
+[L, B, H, T, Dh / 2] uint8, with bf16 scales [L, B, H, T]. The kernel
+indexes the layer inside the stacked cache, which is never sliced or
+copied. Masked scores are -1e9, so a row whose keys are all masked is
+uniform over T, as in the reference.
+
+Each wrapper launches the kernel for CUDA tensors (or raises) and runs its
+plain twin, written on ``cache_values`` with the same rounding points,
+only for CPU tensors. The head dim is 64 (every Whisper size).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..models.whisper import cache_values
+
+HEAD_DIM = 64
+MAX_KEYS = 8192                       # the kernel keeps the scores in SMEM
+NEG_INF = -1e9                        # the reference's mask fill
+_CACHE_KINDS = {torch.int8: 0, torch.uint8: 1, torch.bfloat16: 2,
+                torch.float32: 3}     # uint8: packed int4
+_Q_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _operand(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cache values in the operand dtype, widened to f32 for the product."""
+    if c.dtype in (torch.int8, torch.uint8):
+        c = cache_values(c)
+    return c.to(dtype).float()
+
+
+def cross_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor,
+                               k_s: torch.Tensor, v_q: torch.Tensor,
+                               v_s: torch.Tensor, q_bf16: bool = False
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of ``cross_attention_int8`` (``q_bf16=False``) and
+    ``cross_attention_int8_v2`` (``q_bf16=True``)."""
+    qf = (q.to(torch.bfloat16) if q_bf16 else q).float()
+    s = torch.matmul(qf, cache_values(k_q).float().transpose(-1, -2)) \
+        * k_s.float()[..., 0][:, :, None, :]
+    p = torch.softmax(s, dim=-1)                          # [B, H, 1, K]
+    pv = (p * v_s.float()[..., 0][:, :, None, :]).to(torch.bfloat16)
+    out = torch.matmul(pv.float(), cache_values(v_q).float())
+    return out.to(q.dtype), p[:, :, 0, :]
+
+
+def _check_cross(q, k_q, k_s, v_q, v_s) -> None:
+    shape = (*q.shape[:2], k_q.shape[2] if k_q.dim() == 4 else -1, HEAD_DIM)
+    ok = (q.dim() == 4 and tuple(q.shape[2:]) == (1, HEAD_DIM)
+          and q.dtype in _Q_DTYPES
+          and all(x.dtype == torch.int8 and tuple(x.shape) == shape
+                  for x in (k_q, v_q))
+          and all(x.dtype == torch.bfloat16 and tuple(x.shape) == shape[:3]
+                  + (1,) for x in (k_s, v_s))
+          and 0 < shape[2] <= MAX_KEYS)
+    if not ok:
+        raise ValueError(
+            "cross_attention_int8: expected q [B, H, 1, 64] f32/bf16, int8 "
+            f"K/V [B, H, K <= {MAX_KEYS}, 64] and bf16 scales [B, H, K, 1]; "
+            f"got q {q.dtype} {list(q.shape)}, K {k_q.dtype} "
+            f"{list(k_q.shape)}, scales {k_s.dtype} {list(k_s.shape)}")
+    _check_card(k_q, v_q, q, k_s, v_s)
+
+
+def _check_card(k: torch.Tensor, v: torch.Tensor,
+                *others: torch.Tensor | None) -> None:
+    """Every tensor contiguous on the cache's card; the caches 16-byte
+    aligned (the kernel reads their rows in 16-byte loads)."""
+    dev = k.device
+    for x in (k, v, *others):
+        if x is not None and (x.device != dev or not x.is_contiguous()):
+            raise ValueError("decode attention: every tensor must be "
+                             f"contiguous on {dev}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode attention: the K/V caches must start on "
+                         "a 16-byte boundary")
+
+
+def _launch_cross(entry: str, q, k_q, k_s, v_q, v_s
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    _check_cross(q, k_q, k_s, v_q, v_s)
+    b, h, _, _ = q.shape
+    t = k_q.shape[2]
+    out = torch.empty_like(q)
+    probs = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = getattr(_build.kernels().lib, entry)(
+            q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), out.data_ptr(), probs.data_ptr(), b, h, t,
+            int(q.dtype == torch.bfloat16), stream)
+    _build.check(err, entry)
+    return out, probs
+
+
+def _device(q: torch.Tensor, name: str) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return q.device.type
+
+
+def cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
+                         k_s: torch.Tensor, v_q: torch.Tensor,
+                         v_s: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B, H, 1, D] (pre-scaled) over int8 K/V [B, H, K, D] with scales
+    [B, H, K, 1] -> (out [B, H, 1, D] in q's dtype, probs [B, H, K] f32);
+    q enters the product in its own dtype."""
+    if _device(q, "cross_attention_int8") == "cpu":
+        return cross_attention_int8_plain(q, k_q, k_s, v_q, v_s)
+    res = _launch_cross("cw_cross_attention_int8", q, k_q, k_s, v_q, v_s)
+    cross_attention_int8.launches += 1
+    return res
+
+
+cross_attention_int8.launches = 0
+
+
+def cross_attention_int8_v2(q: torch.Tensor, k_q: torch.Tensor,
+                            k_s: torch.Tensor, v_q: torch.Tensor,
+                            v_s: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``cross_attention_int8`` with q rounded to bf16 before the product
+    (the reference's v2)."""
+    if _device(q, "cross_attention_int8_v2") == "cpu":
+        return cross_attention_int8_plain(q, k_q, k_s, v_q, v_s,
+                                          q_bf16=True)
+    res = _launch_cross("cw_cross_attention_int8_v2", q, k_q, k_s, v_q, v_s)
+    cross_attention_int8_v2.launches += 1
+    return res
+
+
+cross_attention_int8_v2.launches = 0
+
+
+def decode_gemv_plain(q: torch.Tensor, k_stack: torch.Tensor,
+                      v_stack: torch.Tensor, layer: int,
+                      k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None,
+                      position: int | None = None,
+                      key_mask: torch.Tensor | None = None,
+                      sel: torch.Tensor | None = None):
+    """The plain twin of ``decode_gemv_attention``."""
+    layer = int(layer)
+    op = q.dtype
+    k, v = _operand(k_stack[layer], op), _operand(v_stack[layer], op)
+    s = torch.matmul(q.float()[:, :, None, :], k.transpose(-1, -2))[:, :, 0]
+    if k_scale is not None:
+        s = s * k_scale[layer].float()
+    t = s.shape[-1]
+    if position is not None:
+        s = s.masked_fill(torch.arange(t, device=s.device) > int(position),
+                          NEG_INF)
+    if key_mask is not None:
+        s = s.masked_fill(key_mask[:, None, :] == 0, NEG_INF)
+    p = torch.softmax(s, dim=-1)                          # [B, H, T]
+    pv = p * v_scale[layer].float() if v_scale is not None else p
+    out = torch.matmul(pv.to(op).float()[:, :, None, :], v)[:, :, 0]
+    if sel is None:
+        return out
+    return out, torch.einsum("ha,bht->bat", sel.float(), p)
+
+
+def decode_gemv_attention(q: torch.Tensor, k_stack: torch.Tensor,
+                          v_stack: torch.Tensor, layer: int,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None,
+                          position: int | None = None,
+                          key_mask: torch.Tensor | None = None,
+                          sel: torch.Tensor | None = None):
+    """Single-query attention of decoder layer ``layer`` against the
+    stacked cache.
+
+    q [B, H, D] f32/bf16, pre-scaled; k_stack/v_stack [L, B, H, T, D]
+    int8/bf16/f32 or packed int4 [L, B, H, T, D / 2] uint8; k_scale /
+    v_scale optional bf16 [L, B, H, T] (both or neither); ``position``
+    masks the keys after it; ``key_mask`` [B, T] (bool or bytes, 0 =
+    masked); ``sel`` [H, A] head weights, one-hot in use (aligned row a
+    is sum_h sel[h, a] * probs[h], as in the reference). Returns out [B,
+    H, D] f32, or (out, aligned [B, A, T] f32) with ``sel``."""
+    if _device(q, "decode_gemv_attention") == "cpu":
+        return decode_gemv_plain(q, k_stack, v_stack, layer, k_scale,
+                                 v_scale, position, key_mask, sel)
+    layer = int(layer)
+    if k_stack.dim() != 5 or q.dim() != 3:
+        raise ValueError(f"decode_gemv_attention: expected q [B, H, D] and "
+                         f"caches [L, B, H, T, *], got {list(q.shape)} and "
+                         f"{list(k_stack.shape)}")
+    n_layers, b, h, t, width = k_stack.shape
+    want = HEAD_DIM // 2 if k_stack.dtype == torch.uint8 else HEAD_DIM
+    if (q.dtype not in _Q_DTYPES or tuple(q.shape) != (b, h, HEAD_DIM)
+            or k_stack.dtype not in _CACHE_KINDS or width != want
+            or v_stack.dtype != k_stack.dtype
+            or v_stack.shape != k_stack.shape
+            or not 0 <= layer < n_layers or not 0 < t <= MAX_KEYS):
+        raise ValueError(
+            f"decode_gemv_attention: unsupported q {q.dtype} "
+            f"{list(q.shape)} / cache {k_stack.dtype} {list(k_stack.shape)} "
+            f"at layer {layer}")
+    if (k_scale is None) != (v_scale is None) or any(
+            s is not None and (s.dtype != torch.bfloat16
+                               or tuple(s.shape) != (n_layers, b, h, t))
+            for s in (k_scale, v_scale)):
+        raise ValueError("decode_gemv_attention: k_scale and v_scale must "
+                         f"both be bf16 [{n_layers}, {b}, {h}, {t}] or both "
+                         "None")
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (b, t):
+            raise ValueError(f"decode_gemv_attention: key_mask must be "
+                             f"[{b}, {t}], got {list(key_mask.shape)}")
+        if key_mask.element_size() != 1:
+            key_mask = key_mask != 0
+    n_align = 0
+    if sel is not None:
+        if sel.dim() != 2 or sel.shape[0] != h:
+            raise ValueError(f"decode_gemv_attention: sel must be [{h}, A], "
+                             f"got {list(sel.shape)}")
+        sel = sel.float().contiguous()
+        n_align = sel.shape[1]
+    _check_card(k_stack, v_stack, q, k_scale, v_scale, key_mask, sel)
+    out = torch.empty((b, h, HEAD_DIM), dtype=torch.float32, device=q.device)
+    aligned = torch.empty((b, n_align, t), dtype=torch.float32,
+                          device=q.device) if sel is not None else None
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _build.kernels().lib.cw_decode_gemv_attention(
+            q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
+            ptr(k_scale), ptr(v_scale), ptr(key_mask), ptr(sel),
+            out.data_ptr(), ptr(aligned), _CACHE_KINDS[k_stack.dtype],
+            n_layers, b, h, t, layer,
+            0 if position is None else max(min(int(position), t), -1),
+            int(position is not None), n_align,
+            int(q.dtype == torch.bfloat16), stream)
+    _build.check(err, "decode_gemv_attention")
+    decode_gemv_attention.launches += 1
+    return out if sel is None else (out, aligned)
+
+
+decode_gemv_attention.launches = 0

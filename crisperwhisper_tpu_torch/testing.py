@@ -56,6 +56,19 @@ STEP_REL_BAND = 5e-5
 STEP_ALIGN_BAND = 1e-5
 STEP_COLUMN_BAND = 1        # int8 steps
 TIE_UNIT = 1.0 / 16         # the f32 (and bf16) scale of a tie column
+# The fused log-mel kernel: the reference kernel's band against the rfft
+# frontend (tests/test_pallas_kernels.py:85), held against the plain twin
+# and against extract_features (torch.stft).
+MEL_BAND = 2e-4
+# The decode-attention kernels against their plain twins: probabilities
+# and aligned rows absolute (f32 sums in other orders); out relative to
+# its largest magnitude, because the scaled probabilities round to bf16
+# before P.V and one of them may round the other way on the two sides
+# (one bf16 step of that term). A bf16 out (v1 and v2 under a bf16 q)
+# allows one bf16 epsilon of the largest output, as attention_error does:
+# two f32 sums a few ulps apart may round to neighbouring bf16 values.
+DA_PROBS_BAND = 1e-6
+DA_OUT_REL_BAND = 1e-3
 
 TINY = dict(
     vocab_size=1000, d_model=64, encoder_layers=2, decoder_layers=2,
@@ -264,6 +277,86 @@ def dtw_error(cost: torch.Tensor, n_tokens: torch.Tensor,
     got = dtw(cost, n_tokens, n_frames)
     return int((got - dtw_jump_times(cost, n_tokens, n_frames)).abs().max()
                .item())
+
+
+def mel_errors(waveform: torch.Tensor, cfg) -> tuple[dict, torch.Tensor]:
+    """The fused log-mel kernel against its plain twin and against
+    ``extract_features``: ({name: (max error, band)}, the kernel's
+    features)."""
+    from .audio.fused_mel import fused_log_mel, log_mel_plain
+    from .audio.mel import extract_features
+    got = fused_log_mel(waveform, cfg)
+    return {"plain": ((got - log_mel_plain(waveform, cfg)).abs().max()
+                      .item(), MEL_BAND),
+            "stft": ((got - extract_features(waveform, cfg)).abs().max()
+                     .item(), MEL_BAND)}, got
+
+
+def decode_attention_inputs(shape: tuple[int, ...], kind: str,
+                            gen: torch.Generator, q_dtype=torch.bfloat16
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(q, k, k_scale, v, v_scale) for one query per row against a cache
+    of ``shape`` [..., B, H, T, 64]: q [B, H, 64] N(0, 1) / 8 (pre-scaled),
+    values of ``kind`` "int8", "int4" (packed), "bf16" or "f32" whose
+    dequantized magnitude is about N(0, 1), bf16 scales [..., B, H, T]
+    (drawn for float caches too; callers leave them out there)."""
+    from .models.whisper import pack_int4
+    dev = gen.device
+    b, h, _, d = shape[-4:]
+    q = (torch.randn((b, h, d), generator=gen, device=dev) / 8).to(q_dtype)
+    qmax = 7 if kind == "int4" else 127
+
+    def values():
+        if kind in ("bf16", "f32"):
+            x = torch.randn(tuple(shape), generator=gen, device=dev)
+            return x.to(torch.bfloat16) if kind == "bf16" else x
+        x = torch.randint(-qmax, qmax + 1, tuple(shape), generator=gen,
+                          device=dev, dtype=torch.int8)
+        return pack_int4(x) if kind == "int4" else x
+
+    def scales():
+        return ((torch.rand(tuple(shape[:-1]), generator=gen, device=dev)
+                 + 1.0) * (1.5 / qmax)).to(torch.bfloat16)
+    return q, values(), scales(), values(), scales()
+
+
+def cross_attention_errors(q: torch.Tensor, k: torch.Tensor,
+                           k_scale: torch.Tensor, v: torch.Tensor,
+                           v_scale: torch.Tensor, v2: bool = False
+                           ) -> dict:
+    """``cross_attention_int8`` (``cross_attention_int8_v2`` with ``v2``)
+    against its plain twin on q [B, H, 1, 64], int8 K/V [B, H, K, 64] and
+    scales [B, H, K, 1]: {name: (max error, band)} for out and probs."""
+    from .ops import decode_attention as da
+    fn = da.cross_attention_int8_v2 if v2 else da.cross_attention_int8
+    out, probs = fn(q, k, k_scale, v, v_scale)
+    rout, rprobs = da.cross_attention_int8_plain(q, k, k_scale, v, v_scale,
+                                                 q_bf16=v2)
+    return _attention_errors(out, rout, {"probs": (probs, rprobs)})
+
+
+def decode_gemv_errors(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       layer: int, **kw) -> dict:
+    """``decode_gemv_attention`` against ``decode_gemv_plain`` on the same
+    arguments: {name: (max error, band)} for out (and the aligned rows
+    with ``sel``)."""
+    from .ops import decode_attention as da
+    got = da.decode_gemv_attention(q, k, v, layer, **kw)
+    ref = da.decode_gemv_plain(q, k, v, layer, **kw)
+    if kw.get("sel") is None:
+        return _attention_errors(got, ref, {})
+    return _attention_errors(got[0], ref[0], {"aligned": (got[1], ref[1])})
+
+
+def _attention_errors(out, rout, probs: dict) -> dict:
+    rel = max(DA_OUT_REL_BAND, torch.finfo(out.dtype).eps)
+    errs = {"out": ((out.float() - rout.float()).abs().max().item(),
+                    rel * rout.float().abs().max().item())}
+    for name, (got, ref) in probs.items():
+        errs[name] = ((got - ref).abs().max().item(), DA_PROBS_BAND)
+    return errs
 
 
 def random_affine(tree, seed: int):

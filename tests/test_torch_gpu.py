@@ -347,3 +347,188 @@ def test_tiny_beam_and_prompt_slices_on_card(gen, tmp_path, seconds, quantize,
         assert testing.token_agreement(cpu[1], gpu[1]) >= 0.9
     else:
         assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND
+
+
+# --- the remaining entry points: fused log-mel, decode attention, probe
+
+
+@pytest.mark.parametrize("n_mels,seconds,batch", [(128, 30, 4), (80, 30, 1),
+                                                  (80, 5, 3)])
+def test_log_mel_kernel_matches_plain_and_stft(gen, n_mels, seconds, batch):
+    """A tone in noise, an all-zero window (exactly -1.5 after the clip)
+    and a clip cut short by zeros: within MEL_BAND of the plain twin and
+    of extract_features, one launch a call."""
+    import numpy as np
+    from crisperwhisper_tpu_torch.audio.fused_mel import fused_log_mel
+    from crisperwhisper_tpu_torch.config import FeatureConfig
+    cfg = FeatureConfig(feature_size=n_mels, chunk_length=seconds)
+    audio = np.zeros((batch, cfg.n_samples), np.float32)
+    audio[0] = testing.tone_audio(seconds, 0)
+    if batch > 1:
+        cut = int(1.7 * testing.SR)
+        audio[-1, :cut] = testing.tone_audio(1.7, 1)[:cut]
+    before = fused_log_mel.launches
+    errs, got = testing.mel_errors(torch.from_numpy(audio).cuda(), cfg)
+    assert fused_log_mel.launches == before + 1
+    assert got.shape == (batch, n_mels, cfg.nb_max_frames)
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+    if batch > 2:
+        assert bool((got[1] == -1.5).all())
+
+
+def test_log_mel_kernel_rejects_what_it_does_not_take(gen):
+    from crisperwhisper_tpu_torch.audio.fused_mel import fused_log_mel
+    from crisperwhisper_tpu_torch.config import FeatureConfig
+    cfg = FeatureConfig(chunk_length=5)
+    with pytest.raises(ValueError):
+        fused_log_mel(torch.zeros((1, cfg.n_samples - 1), device="cuda"),
+                      cfg)
+    with pytest.raises(ValueError):
+        fused_log_mel(torch.zeros((1, cfg.n_samples), device="cuda",
+                                  dtype=torch.float64), cfg)
+    with pytest.raises(ValueError):
+        fused_log_mel(torch.zeros((cfg.n_samples, 2), device="cuda").T, cfg)
+
+
+@pytest.mark.parametrize("b,h,t,q_dtype", [
+    (16, 20, 1500, torch.bfloat16), (16, 20, 1500, torch.float32),
+    (2, 4, 40, torch.float32), (3, 5, 1, torch.bfloat16)])
+@pytest.mark.parametrize("v2", [False, True])
+def test_cross_attention_kernels_match_plain(gen, b, h, t, q_dtype, v2):
+    """v1 and v2 at the decoder's cross width and at small shapes: out and
+    all probabilities within testing's bands, one launch a call."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = testing.decode_attention_inputs((b, h, t, 64), "int8",
+                                                      gen, q_dtype)
+    fn = da.cross_attention_int8_v2 if v2 else da.cross_attention_int8
+    before = fn.launches
+    errs = testing.cross_attention_errors(q[:, :, None], k, ks[..., None], v,
+                                          vs[..., None], v2)
+    assert fn.launches == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+
+
+def test_cross_attention_kernels_keep_their_q_rounding(gen):
+    """With an f32 q the two entries differ by more than the band (v2
+    rounds q to bf16 first)."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = testing.decode_attention_inputs((4, 20, 1500, 64),
+                                                      "int8", gen,
+                                                      torch.float32)
+    args = (q[:, :, None], k, ks[..., None], v, vs[..., None])
+    o1, _ = da.cross_attention_int8(*args)
+    o2, _ = da.cross_attention_int8_v2(*args)
+    assert (o1 - o2).abs().max() > testing.DA_OUT_REL_BAND * o1.abs().max()
+
+
+_GEMV = {   # name: (cache, q dtype, [L, B, H, T], scales, position, mask, sel)
+    "microbench-int8": ("int8", torch.bfloat16, (2, 64, 20, 1536), True,
+                        None, False, True),
+    "microbench-int4": ("int4", torch.bfloat16, (2, 64, 20, 1536), True,
+                        None, False, True),
+    "microbench-bf16": ("bf16", torch.bfloat16, (2, 64, 20, 1536), False,
+                        None, False, True),
+    "int8-f32-all": ("int8", torch.float32, (2, 3, 4, 48), True, 30, True,
+                     True),
+    "int4-f32-position-past-T": ("int4", torch.float32, (2, 3, 4, 48), True,
+                                 100, True, False),
+    "bf16-f32-position-before-0": ("bf16", torch.float32, (2, 3, 4, 48),
+                                   False, -1, False, True),
+    "f32-bf16-ring": ("f32", torch.bfloat16, (3, 3, 4, 448), False, 60, True,
+                      True),
+    "f32-f32-one-key": ("f32", torch.float32, (1, 2, 3, 1), False, None,
+                        False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(_GEMV))
+def test_decode_gemv_kernel_matches_plain(gen, case):
+    """Every cache kind and q dtype, with and without each option, at the
+    microbench's shape of the reference (experiments/decode_gemv_v3.py
+    :274) and small; the key mask masks every key of row 1, which is then
+    uniform over T; sel [H, 15] one-hot with columns no head selects."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    kind, q_dtype, (n, b, h, t), scales, position, mask, sel = _GEMV[case]
+    q, k, ks, v, vs = testing.decode_attention_inputs((n, b, h, t, 64), kind,
+                                                      gen, q_dtype)
+    kw = dict(k_scale=ks, v_scale=vs) if scales else {}
+    if position is not None:
+        kw["position"] = position
+    if mask:
+        m = torch.rand((b, t), generator=gen, device="cuda") > 0.3
+        m[1] = False
+        kw["key_mask"] = m
+    if sel:
+        s = torch.zeros((h, 15), device="cuda")
+        for a in range(0, 15, 2):
+            s[a % h, a] = 1.0
+        kw["sel"] = s
+    before = da.decode_gemv_attention.launches
+    errs = testing.decode_gemv_errors(q, k, v, n - 1, **kw)
+    assert da.decode_gemv_attention.launches == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+    if mask and sel:
+        _, aligned = da.decode_gemv_attention(q, k, v, n - 1, **kw)
+        assert torch.allclose(aligned[1, ::2], torch.full_like(
+            aligned[1, ::2], 1.0 / t), rtol=0, atol=testing.DA_PROBS_BAND)
+        assert not bool(aligned[:, 1::2].any())
+
+
+def test_decode_gemv_kernel_sums_heads_sharing_a_sel_column(gen):
+    """A sel column with two heads (weights 1 and 0.5) gets their weighted
+    sum, as the plain twin does; the other columns as before."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = testing.decode_attention_inputs((2, 4, 20, 448, 64),
+                                                      "int8", gen)
+    s = torch.zeros((20, 3), device="cuda")
+    s[0, 0], s[7, 0], s[3, 2] = 1.0, 0.5, 1.0
+    errs = testing.decode_gemv_errors(q, k, v, 1, k_scale=ks, v_scale=vs,
+                                      sel=s)
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+    _, aligned = da.decode_gemv_attention(q, k, v, 1, k_scale=ks,
+                                          v_scale=vs, sel=s)
+    assert not bool(aligned[:, 1].any())
+
+
+def test_decode_attention_kernels_reject_what_they_do_not_take(gen):
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = testing.decode_attention_inputs((2, 2, 4, 40, 64),
+                                                      "int8", gen)
+    with pytest.raises(ValueError):               # layer out of range
+        da.decode_gemv_attention(q, k, v, 2)
+    with pytest.raises(ValueError):               # one scale without other
+        da.decode_gemv_attention(q, k, v, 0, k_scale=ks)
+    with pytest.raises(ValueError):               # strided cache
+        da.decode_gemv_attention(q, k.transpose(3, 4).contiguous()
+                                 .transpose(3, 4), v, 0)
+    with pytest.raises(ValueError):               # head dim 32
+        da.decode_gemv_attention(q[..., :32].contiguous(),
+                                 k[..., :32].contiguous(),
+                                 v[..., :32].contiguous(), 0)
+    with pytest.raises(ValueError):               # a bf16 cache for v1
+        da.cross_attention_int8(q[:, :, None], k[0].bfloat16(),
+                                ks[0, ..., None], v[0], vs[0, ..., None])
+
+
+def test_probe_ladder_on_card(gen, capsys):
+    """Every rung passes: a bf16 matmul, the probe kernel (equal to x * 2
+    bit for bit, one launch) and every CUDA source compiled alone."""
+    from crisperwhisper_tpu_torch import _build, probe
+    before = probe.probe_add.launches
+    assert probe.main([]) == 0
+    assert probe.probe_add.launches == before + 1
+    out = capsys.readouterr().out
+    for rung in ("plain", "probe_add", *_build.SOURCES):
+        assert f"PROBE {rung}: OK" in out, out
+
+
+def test_build_names_a_source_nvcc_refuses(gen, tmp_path):
+    from crisperwhisper_tpu_torch import _build
+    bad = tmp_path / "broken.cu"
+    bad.write_text("__global__ void k() { undeclared = 1; }\n")
+    with pytest.raises(RuntimeError, match=r"nvcc failed on broken\.cu"):
+        _build.compile_object(bad, tmp_path / "broken.o")

@@ -23,6 +23,9 @@ import crisperwhisper_tpu_torch.ops.dtw
 import crisperwhisper_tpu_torch.ops.alignment
 import crisperwhisper_tpu_torch.ops.decode_step
 import crisperwhisper_tpu_torch.ops.ring_write
+import crisperwhisper_tpu_torch.ops.decode_attention
+import crisperwhisper_tpu_torch.audio.fused_mel
+import crisperwhisper_tpu_torch.probe
 import crisperwhisper_tpu_torch.decoding.longform
 import crisperwhisper_tpu_torch.decoding.assisted
 import crisperwhisper_tpu_torch.tokenizer
