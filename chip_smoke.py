@@ -6,19 +6,25 @@
 Phases, one line each on stdout:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from crisperwhisper_tpu_torch/csrc (one nvcc
-     per source, in parallel; ptxas registers and spills of the
-     decode-step kernel and of the log-mel, decode-attention and probe
-     kernels) and import the Triton module (Triton compiles at the first
-     launch, in phase 2);
+     per source, in parallel; ptxas registers, spills and shared memory of
+     both encoder-attention kernels, of the decode-step kernel and of the
+     log-mel, decode-attention and probe kernels) and import the Triton
+     module (Triton compiles at the first launch, in phase 2);
   2. each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the maximum error and both times (the
      comparisons and bands of crisperwhisper_tpu_torch.testing, which
-     tests/test_torch_gpu.py runs too); the decode-step kernel at
+     tests/test_torch_gpu.py runs too); the encoder attention at bf16 and
+     f16 [4, 20, 1500, 64] and bf16 [16, 20, 1500, 64] (the CLI's batch
+     of 16 windows) on the tensor-core route and at f32 on the CUDA-core
+     route, each row with its route, error, times, bound and the time of
+     scaled_dot_product_attention; the decode-step kernel at
      large-v3 width (random int8 weights, random decoder biases and
      LayerNorms, a ring of 128 at position 60) for one row with int4 and
      int8 cross caches and four rows with int4, timed beside the
      quantized non-kernel decode_step; then one row at position 0 (the
-     fresh column alone in the ring), untimed; in each case also fresh
+     fresh column alone in the ring), untimed, and eight more position-0
+     draws printed with where their fresh columns first part, not
+     required (the position-0 check holds for some draws only); in each case also fresh
      columns placed on the int8 rounding's ties; the verify-block (multi)
      mode at M = 5 with the same checks, timed beside the b1 mode, and
      at M = 1, where it must equal the b1 mode bit for bit; the beams
@@ -54,7 +60,8 @@ Phases, one line each on stdout:
   4. the full large-v3 geometry with random bf16 weights built on the
      card: load_pipeline answers a 60 s WAV file and a 12 s array with
      word timestamps and adjust_pauses=0.12; every kernel's launch count
-     is reset just before and read just after, and must be > 0;
+     is reset just before and read just after, and must be > 0; every
+     encoder-attention launch must have taken the tensor-core route;
   5. the same weights through load_pipeline(quantize="serving") with
      b1_decode_kernel: the 12 s array (batch 1, decode_step_b1) and the
      60 s WAV (3 windows, decode_step_rows), counts reset before each
@@ -162,7 +169,8 @@ def _graph_ms(fn, iters: int) -> float:
 
 
 HBM_BYTES_PER_MS = 3.35e9          # H100 SXM data sheet: 3.35 TB/s
-PEAK_OPS_PER_MS = {"bf16": 989e9, "f32": 67e9}   # tensor cores; CUDA cores
+PEAK_OPS_PER_MS = {"bf16": 989e9, "f16": 989e9,   # tensor cores
+                   "f32": 67e9}                    # CUDA cores
 
 
 def _bound(n_bytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -254,6 +262,12 @@ def phase1_build() -> None:
     print(f"phase 1 ok: nvcc built {kern.path.name} in "
           f"{kern.build_seconds:.2f} s; ptxas: {' | '.join(regs)}",
           flush=True)
+    print("phase 1 encoder_attention.cu: " + "; ".join(
+        sum((_ptxas_summary(kern.ptxas_log, name) for name in (
+            "attention_tc_kernel", "encoder_attention_kernel")), []))
+        + "; tensor-core CTA dynamic shared memory (Dh 16/32/64): "
+        + "/".join(str(kern.lib.cw_encoder_attention_tc_smem(d))
+                   for d in (16, 32, 64)) + " bytes", flush=True)
     print("phase 1 decode_step.cu: " + "; ".join(
         _ptxas_summary(kern.ptxas_log, "decode_step_kernel")), flush=True)
     print("phase 1 log_mel.cu, decode_attention.cu, probe.cu: " + "; ".join(
@@ -263,8 +277,9 @@ def phase1_build() -> None:
 
 
 def _ptxas_summary(log: str, kernel: str) -> list[str]:
-    """'<entry>: N registers, S bytes spill stores, L bytes spill loads'
-    for each compiled entry whose name holds ``kernel``."""
+    """'<entry>: N registers[, static smem and the rest of ptxas's Used
+    line], S bytes spill stores, L bytes spill loads' for each compiled
+    entry whose name holds ``kernel``."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -272,7 +287,7 @@ def _ptxas_summary(log: str, kernel: str) -> list[str]:
         elif name and "spill stores" in ln:
             spill = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
-            regs = ln.split("Used", 1)[1].split(",")[0].strip()
+            regs = ln.split("Used", 1)[1].strip()
             out.append(f"{name}: {regs}, {spill}")
             name = None
     return out
@@ -294,31 +309,44 @@ def phase2_kernels(large) -> list[dict]:
     entries = []
 
     # --- kernel 1: encoder attention against the plain version on the
-    # f32 widening of its inputs (bands: testing.attention_error)
+    # f32 widening of its inputs (bands: testing.attention_error); 16-bit
+    # rows on the tensor-core route, f32 on the CUDA-core route. The f16
+    # and batch-16 rows draw from a generator of their own, so the shared
+    # one's stream, and with it every later check's inputs, stay as they
+    # were before those rows existed.
+    own = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for shape, dtype in (((4, 20, 1500, 64), torch.bfloat16),
-                         ((4, 20, 1500, 64), torch.float32),
-                         ((4, 20, 300, 64), torch.float32)):
-        q, k, v = (torch.randn(shape, generator=gen, device=dev) * s
+    for shape, dtype, g in (((4, 20, 1500, 64), torch.bfloat16, gen),
+                            ((4, 20, 1500, 64), torch.float16, own),
+                            ((16, 20, 1500, 64), torch.bfloat16, own),
+                            ((4, 20, 1500, 64), torch.float32, gen),
+                            ((4, 20, 300, 64), torch.float32, gen)):
+        q, k, v = (torch.randn(shape, generator=g, device=dev) * s
                    for s in (0.3, 0.3, 1.0))
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        path = fa.route(dtype, shape[3])
+        before = fa.fused_attention.route_launches[path]
         err, band = testing.attention_error(q, k, v)
-        ms = _time_ms(lambda: fa.fused_attention(q, k, v), 10)
-        plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v), 10)
+        _require(fa.fused_attention.route_launches[path] == before + 1,
+                 f"attention {shape} {dtype}: not on the {path} route")
+        ms = _time_ms(lambda: fa.fused_attention(q, k, v), 20)
+        plain_ms = _time_ms(lambda: fa.attention_plain(q, k, v), 5)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=1.0), 20)
         _require(err <= band, f"attention {shape} {dtype}: max err {err} "
                               f"> {band}")
-        rows.append(f"{list(shape)} {str(dtype)[6:]} err {err:.3g} "
-                    f"(band {band:.3g}) {ms:.3f} ms vs plain "
-                    f"{plain_ms:.3f} ms")
+        kind = {torch.bfloat16: "bf16", torch.float16: "f16"}.get(dtype,
+                                                                 "f32")
+        bound, by = _bound(_nbytes(q, k, v, q), 4 * q.numel() * shape[2],
+                           kind)
+        rows.append(f"{list(shape)} {str(dtype)[6:]} {path} err {err:.3g} "
+                    f"(band {band:.3g}) {ms:.4f} ms vs plain "
+                    f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
+                    f"scaled_dot_product_attention {lib_ms:.4f} ms")
         if len(entries) == 0:           # the main path's case (bf16)
-            bound, by = _bound(_nbytes(q, k, v, q),
-                               4 * q.numel() * shape[2], "bf16")
-            lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=1.0), 10)
-            rows[-1] += (f", bound {bound:.4f} ms ({by}), "
-                         f"scaled_dot_product_attention {lib_ms:.3f} ms")
             entries.append({
                 "name": "encoder_attention", "route": "cuda",
+                "kernel_route": path,
                 "source": "crisperwhisper_tpu_torch/csrc/encoder_attention.cu",
                 "replaces": "crisperwhisper_tpu/ops/fused_attention.py:37",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -384,7 +412,10 @@ def phase2_kernels(large) -> list[dict]:
     sel = alignment_selector(arch, heads)
     # ring 128 at position 60, then at position 0, where the fresh column
     # is the only live slot, so its bf16 scales weigh fully (checked, not
-    # timed)
+    # timed). The position-0 hid and align checks hold for this draw, not
+    # for every draw: a fresh V value that rounds one int8 step apart on
+    # the two sides is there the head's only V slot and reaches hid whole
+    # (the scan below prints such draws; ROADMAP queue 3).
     for rows, cross, pos in ((1, "int4", 60), (1, "int8", 60),
                              (4, "int4", 60), (1, "int4", 0)):
         cache = testing.random_step_cache(arch, rows, cross, 128, pos, gen)
@@ -403,7 +434,7 @@ def phase2_kernels(large) -> list[dict]:
                 f"{pos}: " + ", ".join(f"{k} err {e:.3g} (band {b:.3g})"
                                        for k, (e, b) in errs.items()))
         if pos == 0:
-            print(line, flush=True)
+            print(line + " (this draw's; see the scan below)", flush=True)
             continue
         work = testing.clone_cache(cache)
         ms = _time_ms(lambda: ds.whole_step(qparams, arch, x0, pos, work,
@@ -429,6 +460,45 @@ def phase2_kernels(large) -> list[dict]:
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": None})
     del work, cache
+
+    # --- kernel 4 at position 0 over other draws (generators of their
+    # own): each draw's hid and align errors against the bands above, and
+    # where the fresh columns first part (testing.fresh_column_divergence).
+    # Printed, not required: these are the draws the check above does not
+    # hold for (ROADMAP queue 3).
+    for seed in range(8):
+        g = torch.Generator(device=dev).manual_seed(100 + seed)
+        cache = testing.random_step_cache(arch, 1, "int4", 128, 0, g)
+        tok = torch.randint(0, arch.vocab_size, (1,), generator=g,
+                            device=dev)
+        x0 = (dec["tok_emb"][tok].float()
+              + dec["pos_emb"][0][None].float()).contiguous()
+        errs = testing.decode_step_errors(qparams, arch, x0, 0, cache,
+                                          tuple(heads))
+        div = testing.fresh_column_divergence(qparams, arch, x0, 0, cache)
+        line = (f"phase 2 decode_step position-0 scan, seed {100 + seed}: "
+                + ", ".join(f"{k} err {e:.3g} (band {b:.3g})"
+                            for k, (e, b) in errs.items() if k != "logits"))
+        if div["first"] is None:
+            line += "; fresh columns equal"
+        else:
+            live = [i for i, n in enumerate(div["cells"]) if n]
+            line += (f"; {sum(div['cells'])} fresh values differ in layers "
+                     f"{live[0]}-{live[-1]} ({len(live)} layers), bf16 "
+                     f"scales in {sum(div['scales'])}; first V layer "
+                     f"{div['first_v']}")
+        for li, at in div["at"].items():
+            line += (f"; layer {li}: residual {at['hid_in']:.3g} of its "
+                     f"largest apart, moving values up to "
+                     f"{at['shift']:.3g} steps, bf16 scales apart "
+                     f"{div['scales'][li]}; " + "; ".join(
+                         f"{h} head {hd} dim {dm}: kernel {kq}, plain {pq}, "
+                         f"plain unrounded {u:.6f} ({m:.3g} steps from the "
+                         f"boundary; {uk:.6f} on the kernel's residual)"
+                         for h, hd, dm, kq, pq, u, m, uk
+                         in at["flips"][:4]))
+        print(line, flush=True)
+    del cache
 
     # --- the verify-block (multi) mode: 5 tokens of one stream at 60
     cache = testing.random_step_cache(arch, 1, "int4", 128, 60, gen)
@@ -853,13 +923,20 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
                             adjust_pauses_threshold=0.12))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = {k: n for k, n in _counts().items()
+    counts = _counts()
+    launches = {k: n for k, n in counts.items()
                 if k in ("encoder_attention", "align_prep", "dtw")}
     peak = torch.cuda.max_memory_allocated()
 
     _check_results(requests, results)
     for name, n in launches.items():
         _require(n > 0, f"kernel {name} was not launched on the main path")
+    _require(counts["encoder_attention_tensor_cores"]
+             == launches["encoder_attention"]
+             and counts["encoder_attention_cuda_cores"] == 0,
+             "encoder attention left the tensor-core route: "
+             f"{counts['encoder_attention_tensor_cores']} of "
+             f"{launches['encoder_attention']} launches on it")
 
     # the first window's logits: finite (no NaN) at full geometry
     from crisperwhisper_tpu_torch.audio.mel import extract_features
@@ -878,7 +955,9 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
           f"{walls[0]:.2f} s wall ({len(results[0]['chunks'])} words), "
           f"12 s array {walls[1]:.2f} s wall "
           f"({len(results[1]['chunks'])} words); peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+          f"{peak / 2**30:.2f} GiB; launches {launches}, encoder "
+          f"attention all {counts['encoder_attention_tensor_cores']} on "
+          "the tensor-core route", flush=True)
     return launches
 
 
@@ -906,17 +985,23 @@ def _wrappers() -> dict:
 def _reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from crisperwhisper_tpu_torch.ops import decode_step as ds
+    from crisperwhisper_tpu_torch.ops import fused_attention as fa
     for wrapper in _wrappers().values():
         wrapper.launches = 0
     ds.whole_step.mode_launches = dict.fromkeys(ds.MODES, 0)
+    fa.fused_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
 
 
 def _counts() -> dict[str, int]:
-    """Launches by kernel, the decode step also by mode."""
+    """Launches by kernel, the decode step also by mode and the encoder
+    attention by route."""
     from crisperwhisper_tpu_torch.ops import decode_step as ds
+    from crisperwhisper_tpu_torch.ops import fused_attention as fa
     return {**{name: w.launches for name, w in _wrappers().items()},
             **{f"decode_step_{m}": n
-               for m, n in ds.whole_step.mode_launches.items()}}
+               for m, n in ds.whole_step.mode_launches.items()},
+            **{f"encoder_attention_{r}": n
+               for r, n in fa.fused_attention.route_launches.items()}}
 
 
 def phase5_serving(tmp: str, large) -> int:
@@ -1336,8 +1421,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    kernels = [{k: (launches[e["name"]] if k == "launches" else e[k])
-                for k in keys} for e in entries]
+    kernels = [{**{k: (launches[e["name"]] if k == "launches" else e[k])
+                   for k in keys},
+                **{k: x for k, x in e.items() if k not in keys}}
+               for e in entries]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

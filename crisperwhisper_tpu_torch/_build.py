@@ -11,9 +11,14 @@ rebuilt and an unchanged one is loaded as it is.
 
 No ``--use_fast_math``: the DTW kernel must match its plain version
 exactly, and its tie-breaks depend on IEEE adds and compares; the
-attention and decode-step kernels use the precise ``expf``, ``erff`` and
-division; the log-mel kernel's DFT feeds ``log10f``, where approximate
-arithmetic would show in the quiet bins. ``compile_object`` compiles one
+attention kernel's f32 route and the decode-step kernel use the precise
+``expf``, ``erff`` and division. The attention kernel's 16-bit route
+issues ``ex2.approx.ftz.f32`` by name, on purpose: it comes within a few
+f32 ulps of 2^x, far below the one 16-bit epsilon that P loses when
+it is rounded to bf16 or f16 for the second product, and it flushes only
+probabilities below 2^-126 of the row's largest to zero. The log-mel
+kernel's DFT feeds ``log10f``, where approximate arithmetic would show
+in the quiet bins. ``compile_object`` compiles one
 source alone (the probe ladder runs it a source at a time).
 
 Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
@@ -121,9 +126,11 @@ def kernels() -> Kernels:
     path, seconds, log = _build()
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cw_encoder_attention.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                         i32, i32, ptr]
-    lib.cw_encoder_attention.restype = i32
+    for entry in (lib.cw_encoder_attention, lib.cw_encoder_attention_tc):
+        entry.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        entry.restype = i32
+    lib.cw_encoder_attention_tc_smem.argtypes = [i32]
+    lib.cw_encoder_attention_tc_smem.restype = i32
     lib.cw_dtw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cw_dtw.restype = i32
     lib.cw_decode_step.argtypes = [ptr] * 14 + [i32] * 14 + [

@@ -1,8 +1,9 @@
 """Triton kernels of ops/align_prep.py (imported only when they launch).
 
 Replaces the TPU kernel crisperwhisper_tpu/ops/pallas_align.py
-(fused_align_prep -> _kernel), which did the z-norm, the 7-tap median and
-the head mean for one (item, head) block in VMEM, full-width rows only.
+(fused_align_prep -> _kernel), which did the z-norm, the median of width
+W and the head mean for one (item, head) block in VMEM, full-width rows
+only.
 
 What bounds it on the H100: memory. The input is [B, 15, T, 1500] f32
 (35 MB at B = 4, T = 96); the arithmetic is a few compares per element.
@@ -11,12 +12,16 @@ Design, two passes:
   1. ``_stats_kernel``, per (item, head, 128-frame tile): mean and
      max(std, 1e-10) over the first n_tokens rows (biased, two-pass
      variance), with frames >= n_frames read as 0.
-  2. ``_prep_kernel``, per (item, 8-token tile, 128-frame tile): a loop
-     over heads that loads the 7 reflected-shift columns (reflect at 0 and
-     at n_frames - 1, per row) with their statistics, normalizes them,
-     takes the median with a compare-exchange network and sums over heads;
-     the output is the negated mean. The 7 taps hit the same cache lines,
-     so device memory sees the input about once per pass.
+  2. ``_prep_kernel``, per (item, token tile, 128-frame tile): a loop
+     over heads that loads the W reflected-shift columns (reflect at 0 and
+     at n_frames - 1, per row, as the plain chain does for any n_frames)
+     as one [tokens, frames, taps] tile with their statistics, normalizes
+     them, sorts the taps of each frame (``tl.sort``, padding taps last;
+     the median is an input, so it equals the plain chain's sort) and sums
+     the middle tap over heads; the output is the negated mean. W is a
+     compile-time constant (any odd width; the token tile shrinks as W
+     grows, to bound registers). The W taps hit the same cache lines, so
+     device memory sees the input about once per pass.
 sqrt and divide are the IEEE-rounded forms (Triton's defaults are
 approximate), so the result stays within 1e-5 of the plain chain.
 """
@@ -76,48 +81,8 @@ def _reflect(idx, nf, K):
 
 
 @triton.jit
-def _tap(base, sbase, mean_ptr, den_ptr, offs_t, idx, ok, K):
-    x = tl.load(base + offs_t[:, None] * K + idx[None, :], mask=ok,
-                other=0.0)
-    mu = tl.load(mean_ptr + sbase + idx)
-    sd = tl.load(den_ptr + sbase + idx)
-    return tl.div_rn(x - mu[None, :], sd[None, :])
-
-
-@triton.jit
-def _cx(a, b):
-    return tl.minimum(a, b), tl.maximum(a, b)
-
-
-@triton.jit
-def _median7(x0, x1, x2, x3, x4, x5, x6):
-    # exchange sort network (the TPU kernel's _median_of), median = x3
-    x0, x1 = _cx(x0, x1)
-    x1, x2 = _cx(x1, x2)
-    x2, x3 = _cx(x2, x3)
-    x3, x4 = _cx(x3, x4)
-    x4, x5 = _cx(x4, x5)
-    x5, x6 = _cx(x5, x6)
-    x0, x1 = _cx(x0, x1)
-    x1, x2 = _cx(x1, x2)
-    x2, x3 = _cx(x2, x3)
-    x3, x4 = _cx(x3, x4)
-    x4, x5 = _cx(x4, x5)
-    x0, x1 = _cx(x0, x1)
-    x1, x2 = _cx(x1, x2)
-    x2, x3 = _cx(x2, x3)
-    x3, x4 = _cx(x3, x4)
-    x0, x1 = _cx(x0, x1)
-    x1, x2 = _cx(x1, x2)
-    x2, x3 = _cx(x2, x3)
-    x0, x1 = _cx(x0, x1)
-    x1, x2 = _cx(x1, x2)
-    x0, x1 = _cx(x0, x1)
-    return x3
-
-
-@triton.jit
 def _prep_kernel(w_ptr, nf_ptr, mean_ptr, den_ptr, out_ptr, A, T, K,
+                 WIDTH: tl.constexpr, TAPS: tl.constexpr,
                  BLOCK_T: tl.constexpr, BLOCK_K: tl.constexpr):
     b = tl.program_id(0)
     pid_t = tl.program_id(1)
@@ -126,27 +91,26 @@ def _prep_kernel(w_ptr, nf_ptr, mean_ptr, den_ptr, out_ptr, A, T, K,
     offs_t = pid_t * BLOCK_T + tl.arange(0, BLOCK_T)
     offs_k = pid_k * BLOCK_K + tl.arange(0, BLOCK_K)
     ok = (offs_t[:, None] < T) & (offs_k[None, :] < K)
-    i0 = _reflect(offs_k - 3, nf, K)
-    i1 = _reflect(offs_k - 2, nf, K)
-    i2 = _reflect(offs_k - 1, nf, K)
-    i3 = _reflect(offs_k, nf, K)
-    i4 = _reflect(offs_k + 1, nf, K)
-    i5 = _reflect(offs_k + 2, nf, K)
-    i6 = _reflect(offs_k + 3, nf, K)
+    # tap w of frame k reads frame reflect(k + w - WIDTH // 2); taps >=
+    # WIDTH (TAPS is WIDTH rounded up to a power of two) are padding
+    offs_w = tl.arange(0, TAPS)
+    tap = offs_w[None, None, :]
+    live = tap < WIDTH
+    idx = _reflect(offs_k[:, None] + offs_w[None, :] - WIDTH // 2, nf, K)
+    ok3 = ok[:, :, None] & live
 
     acc = tl.zeros([BLOCK_T, BLOCK_K], dtype=tl.float32)
     for a in range(A):
         ba = (b * A + a).to(tl.int64)
-        base = w_ptr + ba * T * K
-        sbase = ba * K
-        acc += _median7(
-            _tap(base, sbase, mean_ptr, den_ptr, offs_t, i0, ok, K),
-            _tap(base, sbase, mean_ptr, den_ptr, offs_t, i1, ok, K),
-            _tap(base, sbase, mean_ptr, den_ptr, offs_t, i2, ok, K),
-            _tap(base, sbase, mean_ptr, den_ptr, offs_t, i3, ok, K),
-            _tap(base, sbase, mean_ptr, den_ptr, offs_t, i4, ok, K),
-            _tap(base, sbase, mean_ptr, den_ptr, offs_t, i5, ok, K),
-            _tap(base, sbase, mean_ptr, den_ptr, offs_t, i6, ok, K))
+        x = tl.load(w_ptr + ba * T * K + offs_t[:, None, None] * K
+                    + idx[None, :, :], mask=ok3, other=0.0)
+        mu = tl.load(mean_ptr + ba * K + idx)
+        sd = tl.load(den_ptr + ba * K + idx)
+        z = tl.div_rn(x - mu[None, :, :], sd[None, :, :])
+        # the median: sort each frame's taps (padding taps as +inf, last)
+        # and take tap WIDTH // 2 (an input, as the plain chain's sort)
+        z = tl.sort(tl.where(live, z, float("inf")), dim=2)
+        acc += tl.sum(tl.where(tap == WIDTH // 2, z, 0.0), axis=2)
     # frames >= n_frames are all-zero columns: z == 0 there
     res = tl.where(offs_k[None, :] < nf, acc, 0.0)
     res = -tl.div_rn(res, tl.zeros_like(res) + A)
@@ -154,14 +118,16 @@ def _prep_kernel(w_ptr, nf_ptr, mean_ptr, den_ptr, out_ptr, A, T, K,
     tl.store(out_ptr + out, res, mask=ok)
 
 
-def launch(weights, n_tokens, n_frames, mean, den, out) -> None:
+def launch(weights, n_tokens, n_frames, mean, den, out, width: int) -> None:
     """Run both passes on the current stream. weights [B, A, T, K] f32;
     n_tokens, n_frames [B] int32; mean, den [B, A, K] and out [B, T, K]
-    f32, allocated by the caller."""
+    f32, allocated by the caller; ``width`` the odd median width."""
     b, a, t, k = weights.shape
+    taps = triton.next_power_of_2(max(width, 2))
+    block_t = max(1, min(_BLOCK_T, 64 // taps))
     _stats_kernel[(b * a, triton.cdiv(k, _BLOCK_K))](
         weights, n_tokens, n_frames, mean, den, a, t, k,
         BLOCK_T=_STATS_BLOCK_T, BLOCK_K=_BLOCK_K, num_warps=4)
-    _prep_kernel[(b, triton.cdiv(t, _BLOCK_T), triton.cdiv(k, _BLOCK_K))](
-        weights, n_frames, mean, den, out, a, t, k,
-        BLOCK_T=_BLOCK_T, BLOCK_K=_BLOCK_K, num_warps=4)
+    _prep_kernel[(b, triton.cdiv(t, block_t), triton.cdiv(k, _BLOCK_K))](
+        weights, n_frames, mean, den, out, a, t, k, WIDTH=width, TAPS=taps,
+        BLOCK_T=block_t, BLOCK_K=_BLOCK_K, num_warps=4)

@@ -2,7 +2,8 @@
 
 Port of crisperwhisper_tpu/ops/pallas_align.py (fused_align_prep):
 [B, A, T, K] alignment-head probabilities -> [B, T, K] f32 DTW cost =
-the negated head mean of the 7-tap median of the token-axis z-norm.
+the negated head mean of the frame-axis median (any odd width) of the
+token-axis z-norm.
 
 Unlike the TPU kernel, this one takes a per-row ``n_frames``: frames >=
 n_frames are zeroed before the statistics and the median reflects at
@@ -17,8 +18,6 @@ from __future__ import annotations
 import torch
 
 from .alignment import median_filter, znorm_tokens
-
-KERNEL_WIDTH = 7        # the median width the kernel is written for
 
 
 def align_prep_plain(weights: torch.Tensor, n_tokens: torch.Tensor,
@@ -56,9 +55,8 @@ def align_prep(weights: torch.Tensor, n_tokens: torch.Tensor,
                 or x.shape != (b,) or not x.is_contiguous():
             raise ValueError(f"align_prep: {name} must be a contiguous int32 "
                              f"[{b}] tensor on {weights.device}")
-    if width != KERNEL_WIDTH:
-        raise ValueError(f"align_prep: the kernel takes median width "
-                         f"{KERNEL_WIDTH}, got {width}")
+    if width <= 0 or width % 2 != 1:
+        raise ValueError("`width` should be an odd positive number")
     if min(b, a, t, k) == 0 or k <= width // 2:
         raise ValueError(f"align_prep: unsupported shape "
                          f"{tuple(weights.shape)}")
@@ -68,7 +66,8 @@ def align_prep(weights: torch.Tensor, n_tokens: torch.Tensor,
     mean = torch.empty((b, a, k), dtype=torch.float32, device=weights.device)
     den = torch.empty_like(mean)
     with torch.cuda.device(weights.device):
-        _align_prep_triton.launch(weights, n_tokens, n_frames, mean, den, out)
+        _align_prep_triton.launch(weights, n_tokens, n_frames, mean, den, out,
+                                  width)
     align_prep.launches += 1
     return out
 

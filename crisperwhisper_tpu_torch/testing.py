@@ -41,12 +41,17 @@ PREP_BAND = 1e-5            # the reference align-prep kernel's band
 # algebra summed in other orders, over up to 32 layers, and a fresh K/V
 # column may round one int8 step apart where a value sits near a rounding
 # boundary. Measured on an H100 with random decoder biases and LayerNorms
-# at large-v3 width, up to 4 rows, hid stays within 1.2e-5 of its largest
-# magnitude and the alignment probabilities within 3.5e-6; the bands are
-# 3-4x the worst of those and 10x or more of chip_smoke.py's cases. A
-# kernel that used the f32 scale of the fresh column instead of its bf16
-# rounding lands above them, at position 0 by 185x (the fresh column is
-# then the only live slot). Logits go through the serving head,
+# at large-v3 width, up to 4 rows, at ring position 60, hid stays within
+# 1.2e-5 of its largest magnitude and the alignment probabilities within
+# 3.5e-6; the bands are 3-4x the worst of those. At position 0 they hold
+# for some draws only: the fresh column is then the only live slot, so a
+# V value that rounds one int8 step apart on the two sides reaches hid
+# whole, and every later layer's values move with it; such sound draws
+# read tens of times the hid band (chip_smoke.py's position-0 scan,
+# testing.fresh_column_divergence). There the band does not tell a
+# fault from rounding: a kernel that used the f32 scale of the fresh
+# column instead of its bf16 rounding read 185x the band on one draw,
+# not far above them. Logits go through the serving head,
 # which rounds hid to the activation dtype: with bf16 activations two
 # hids a few f32 ulps apart may round to neighbouring bf16 values, so the
 # logits band is at least one epsilon of that dtype of the largest logit
@@ -551,6 +556,98 @@ def decode_step_errors(params, arch: WhisperArch, x0: torch.Tensor,
                    head_rel * rlogits.abs().max().item()),
         "align": ((align - ralign).abs().max().item(), STEP_ALIGN_BAND),
         "columns": (cols, STEP_COLUMN_BAND)}
+
+
+def _first_layers(params, arch: WhisperArch, cache, n: int):
+    """``params``, ``arch`` and a clone of ``cache`` cut to the first n
+    decoder layers (the kernel then stops after layer n - 1)."""
+    from dataclasses import fields, replace
+    dec = params["decoder"]
+    return ({**params, "decoder": {**dec, "layers": dec["layers"][:n]}},
+            replace(arch, decoder_layers=n),
+            replace(cache, **{f.name: getattr(cache, f.name)[:n].clone()
+                              for f in fields(cache)
+                              if getattr(cache, f.name) is not None}))
+
+
+def _unrounded_kv(lp: dict, arch: WhisperArch, hid: torch.Tensor):
+    """Layer ``lp``'s fresh K and V of residual ``hid`` [1, d] in int8
+    steps before rounding (x / (amax / 127), as ``_quantize`` divides),
+    each [H, Dh], by the plain step's algebra."""
+    from .ops.decode_step import _gemv, _ln
+    d, h, dh = arch.d_model, arch.decoder_attention_heads, arch.head_dim
+    qkv = _gemv(_ln(hid.float(), lp["ln1"]), lp["self"]["qkv"])
+    out = []
+    for i in (1, 2):
+        x = qkv[0, i * d:(i + 1) * d].reshape(h, dh)
+        out.append(x / (x.abs().amax(-1, keepdim=True).clamp_min(1e-8)
+                        / 127.0))
+    return out
+
+
+def fresh_column_divergence(params, arch: WhisperArch, x0: torch.Tensor,
+                            position: int, cache) -> dict:
+    """Where the decode-step kernel's fresh ring columns first part from
+    ``whole_step_plain``'s, for one row (b1 mode, no alignment heads):
+
+      * ``cells`` / ``scales``: per layer, the K and V values, and the
+        bf16 scales, that differ between the two;
+      * ``first`` / ``first_v``: the first layer with a differing value,
+        and with a differing V value (None: none);
+      * ``at``: for each of those layers, {``hid_in``: how far the
+        kernel's residual entering it is from the plain one's, relative
+        to the plain one's largest value; ``shift``: how far that moves
+        the layer's fresh values, in int8 steps (the plain algebra on
+        both residuals); ``flips``: its differing values as (half, head,
+        dim, kernel's int8, plain int8, the plain value before rounding
+        in int8 steps, that value's distance from the nearest rounding
+        boundary, the plain algebra's value on the kernel's residual)}.
+
+    A value that sits within ``shift`` (or a few f32 ulps) of a boundary
+    may round either way on two correct sides. At position 0 a K value
+    so flipped changes nothing (the softmax of one score is 1), but a V
+    value is the only V slot of its head, and so reaches hid whole."""
+    from .ops.decode_step import whole_step, whole_step_plain
+    kc, pc = clone_cache(cache), clone_cache(cache)
+    whole_step(params, arch, x0, position, kc, (None,))
+    whole_step_plain(params, arch, x0, position, pc, (None,))
+    halves = ("self_k", "self_v")
+    diff = [_fresh(getattr(kc, n), position, 1)[:, 0]
+            != _fresh(getattr(pc, n), position, 1)[:, 0] for n in halves]
+    sdiff = [_fresh(getattr(kc, n + "_scale"), position, 1)[:, 0]
+             != _fresh(getattr(pc, n + "_scale"), position, 1)[:, 0]
+             for n in halves]
+    cells = (diff[0].sum((1, 2)) + diff[1].sum((1, 2))).tolist()
+    v_cells = diff[1].sum((1, 2)).tolist()
+    out = {"cells": cells,
+           "scales": (sdiff[0].sum(1) + sdiff[1].sum(1)).tolist(),
+           "first": next((i for i, n in enumerate(cells) if n), None),
+           "first_v": next((i for i, n in enumerate(v_cells) if n), None),
+           "at": {}}
+    for li in sorted({out["first"], out["first_v"]} - {None}):
+        hk = hp = x0.float()
+        if li > 0:
+            p, a, c = _first_layers(params, arch, cache, li)
+            hk, _ = whole_step(p, a, x0, position, c, (None,))
+            p, a, c = _first_layers(params, arch, cache, li)
+            hp, _ = whole_step_plain(p, a, x0, position, c, (None,))
+        lp = params["decoder"]["layers"][li]
+        uk, up = (_unrounded_kv(lp, arch, h) for h in (hk, hp))
+        flips = []
+        for i, n in enumerate(halves):
+            for head, dim in diff[i][li].nonzero().tolist():
+                u = up[i][head, dim].item()
+                flips.append((n[-1].upper(), head, dim,
+                              int(getattr(kc, n)[li, 0, head, position, dim]),
+                              int(getattr(pc, n)[li, 0, head, position, dim]),
+                              u, abs(abs(u) % 1.0 - 0.5),
+                              uk[i][head, dim].item()))
+        out["at"][li] = {
+            "hid_in": ((hk - hp).abs().max() / hp.abs().max()).item(),
+            "shift": max((a - b).abs().max().item()
+                         for a, b in zip(uk, up)),
+            "flips": flips}
+    return out
 
 
 def beams_rows_mismatch(params, arch: WhisperArch, x0: torch.Tensor,

@@ -131,3 +131,75 @@ def test_wrappers_reject_unsupported_device(cases, wrapper):
         else:
             dtw(*(x.to("meta") for x in _t(cases["mat"], cases["dnt"],
                                            cases["dnf"])))
+
+
+@pytest.mark.parametrize("width", [1, 3, 5, 9])
+def test_align_prep_plain_any_width_matches_jax(cases, width):
+    """Median widths other than 7 (the reference app runs 3): full rows
+    against the JAX kernel run interpreted at that width, cropped rows
+    (n_frames at, just past and near the width, and 130) against the JAX
+    XLA chain. Band of the reference's kernel test (1e-5)."""
+    from crisperwhisper_tpu.ops.alignment import median_filter, znorm_tokens
+    from crisperwhisper_tpu.ops.pallas_align import fused_align_prep
+    from crisperwhisper_tpu_torch.ops.align_prep import align_prep_plain
+    w, nt = cases["w"], cases["nt"]
+    full = np.full((2,), w.shape[-1], np.int32)
+    ref = np.asarray(fused_align_prep(jnp.asarray(w[:2]), jnp.asarray(nt[:2]),
+                                      width, interpret=True))
+    got = align_prep_plain(*_t(w[:2], nt[:2], full), width).numpy()
+    for i in range(2):
+        np.testing.assert_allclose(got[i][:nt[i]], ref[i][:nt[i]], atol=1e-5)
+
+    nts = np.array([25, 17, 25, 9], np.int32)
+    nfs = np.array([width // 2, width // 2 + 1, width + 1, 130], np.int32)
+    ws = w[np.arange(4) % len(w)]
+    got = align_prep_plain(*_t(ws, nts, nfs), width).numpy()
+    t, m = ws.shape[2], ws.shape[3]
+    for i in range(len(ws)):
+        fmask = np.arange(m) < nfs[i]
+        tmask = np.arange(t) < nts[i]
+        wi = jnp.where(jnp.asarray(fmask)[None, None, :],
+                       jnp.asarray(ws[i]), 0.0)
+        z = znorm_tokens(wi, jnp.broadcast_to(jnp.asarray(tmask),
+                                              (ws.shape[1], t)))
+        ref = np.asarray(-jnp.mean(median_filter(z, width, int(nfs[i])),
+                                   axis=0))
+        live = tmask[:, None] & fmask[None, :]
+        np.testing.assert_allclose(got[i][live], ref[live], atol=1e-5)
+
+
+def test_tiny_pipeline_median_width_5_matches_jax(tmp_path):
+    """The whole TINY slice with load_pipeline(median_filter_width=5) on
+    both packages (f32, one temperature): equal tokens, token timestamps
+    within one DTW frame. On the card the same width reaches the
+    align-prep kernel (tests/test_torch_gpu.py)."""
+    from dataclasses import replace
+
+    from crisperwhisper_tpu.config import PipelineOptions
+    from crisperwhisper_tpu.hub import load_pipeline as jax_load
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.pipeline.asr import chunk_iter
+    from torch_port_fixtures import (CHUNK_S, SR, TS_BAND, tone_audio,
+                                     write_tiny_checkpoint)
+    ckpt = write_tiny_checkpoint(str(tmp_path / "ckpt"))
+    po = PipelineOptions(chunk_length_s=CHUNK_S, batch_size=16,
+                         return_timestamps="word")
+    jp = jax_load(ckpt, dtype=jnp.float32, pipe_opts=po,
+                  median_filter_width=5)
+    jp.gen_opts = replace(jp.gen_opts, temperatures=(0.0,),
+                          staged_ring_quantum=0)
+    tp = load_pipeline(ckpt, dtype=torch.float32, device="cpu", pipe_opts=po,
+                       median_filter_width=5)
+    tp.gen_opts = replace(tp.gen_opts, temperatures=(0.0,))
+    assert jp.gen_opts.median_filter_width == 5
+    assert tp.gen_opts.median_filter_width == 5
+    audio = tone_audio(12.0, 0)
+    step = round(CHUNK_S / 6 * SR)
+    chunks = list(chunk_iter(audio, 0, CHUNK_S * SR, step, step))
+    ref = jp._run_chunks(chunks, CHUNK_S * SR, "word")
+    got = tp._run_chunks(chunks, CHUNK_S * SR, "word")
+    assert len(got) == len(ref) == 4
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g["tokens"], r["tokens"])
+        np.testing.assert_allclose(g["token_timestamps"],
+                                   r["token_timestamps"], atol=TS_BAND)

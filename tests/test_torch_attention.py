@@ -67,3 +67,47 @@ def test_fused_attention_rejects_unsupported_device(qkv):
     q, k, v = (torch.from_numpy(x).to("meta") for x in qkv((1, 1, 8, 16), 3))
     with pytest.raises(ValueError):
         fused_attention(q, k, v)
+
+
+def test_fused_attention_plain_matches_jax_eager_f16(qkv):
+    """float16 inputs (load_pipeline(dtype=torch.float16)): the plain twin
+    against the reference's eager attention at f16. Both keep f32 scores
+    and round P to f16 for the second product; band = one f16 epsilon of
+    the largest output (1 to 2 ulps), for the two frameworks' f16
+    roundings, as testing.attention_error allows the kernel."""
+    from crisperwhisper_tpu.models.whisper import attention
+    from crisperwhisper_tpu_torch.ops.fused_attention import attention_plain
+    q, k, v = qkv((1, 2, 200, 64), seed=5)
+    ref, _ = attention(*(jnp.asarray(x, jnp.float16) for x in (q, k, v)))
+    got = attention_plain(*(torch.from_numpy(x).half() for x in (q, k, v)))
+    assert got.dtype == torch.float16
+    ref = np.asarray(ref, np.float32)
+    band = float(torch.finfo(torch.float16).eps) * np.abs(ref).max()
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=band)
+
+
+@pytest.mark.parametrize("dtype,head_dim,expected", [
+    (torch.bfloat16, 64, "tensor_cores"), (torch.float16, 64, "tensor_cores"),
+    (torch.bfloat16, 16, "tensor_cores"), (torch.float16, 32, "tensor_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 16, "cuda_cores"),
+    (torch.float64, 64, TypeError), (torch.bfloat16, 128, ValueError),
+    (torch.float32, 128, ValueError)])
+def test_attention_route_by_dtype_and_head_dim(dtype, head_dim, expected):
+    """The route a CUDA call takes is decided in Python, before any
+    launch: 16-bit types on tensor cores, f32 on CUDA cores; anything
+    else raises (no fallback)."""
+    from crisperwhisper_tpu_torch.ops.fused_attention import ROUTES, route
+    if isinstance(expected, str):
+        assert route(dtype, head_dim) == expected and expected in ROUTES
+    else:
+        with pytest.raises(expected):
+            route(dtype, head_dim)
+
+
+def test_fused_attention_counts_no_route_on_the_cpu(qkv):
+    """CPU tensors take the plain version: neither route's count moves."""
+    from crisperwhisper_tpu_torch.ops.fused_attention import fused_attention
+    q, k, v = (torch.from_numpy(x).half() for x in qkv((1, 2, 40, 64), 6))
+    before = dict(fused_attention.route_launches)
+    assert fused_attention(q, k, v).dtype == torch.float16
+    assert fused_attention.route_launches == before

@@ -220,6 +220,40 @@ def test_plain_rounds_ties_half_to_even(rows):
     assert testing.tie_column_error(tq, arch, x0, 5, pc) == 0   # CPU: plain
 
 
+def test_fresh_column_divergence_finds_the_first_flip(monkeypatch):
+    """testing.fresh_column_divergence (the card's position-0 scan) finds
+    no divergence where both sides are the plain step (the CPU), and
+    names the one V value moved an int8 step in layer 1 of a stand-in
+    kernel, with the plain value before rounding that rounds to it."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.ops import decode_step as T
+    arch, jq, _, tq = quantized_tiny()
+    _, pc = _caches(arch, jq, 1, jnp.int4)
+    x0 = torch.randn((1, arch.d_model),
+                     generator=torch.Generator().manual_seed(7))
+    assert testing.fresh_column_divergence(tq, arch, x0, 5, pc) == {
+        "cells": [0] * arch.decoder_layers,
+        "scales": [0] * arch.decoder_layers, "first": None,
+        "first_v": None, "at": {}}
+    plain = T.whole_step
+
+    def kernel(params, arch_, x0_, position, cache, heads, **kw):
+        out = plain(params, arch_, x0_, position, cache, heads, **kw)
+        if arch_.decoder_layers == 2:
+            v = cache.self_v[1, 0, 2, position, 5]
+            cache.self_v[1, 0, 2, position, 5] = v - 1 if v > 0 else v + 1
+        return out
+    monkeypatch.setattr(T, "whole_step", kernel)
+    div = testing.fresh_column_divergence(tq, arch, x0, 5, pc)
+    assert div["cells"] == [0, 1] and div["first"] == div["first_v"] == 1
+    at = div["at"][1]
+    assert list(div["at"]) == [1] and at["hid_in"] == at["shift"] == 0.0
+    [(half, head, dim, kq, pq, u, margin, uk)] = at["flips"]
+    assert (half, head, dim, abs(kq - pq)) == ("V", 2, 5, 1)
+    assert round(u) == pq and margin == abs(abs(u) % 1.0 - 0.5) <= 0.5
+    assert uk == u
+
+
 def test_plain_multi_rounds_ties_half_to_even():
     """The same ties in the verify-block mode: all four fresh columns of
     a 4-token block round half-to-even with the exact scale."""

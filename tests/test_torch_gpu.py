@@ -27,20 +27,42 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+_OWN_GENERATOR = {((4, 20, 1500, 64), torch.float16),
+                  ((16, 20, 1500, 64), torch.bfloat16),
+                  ((2, 4, 300, 64), torch.float16),
+                  ((3, 4, 250, 16), torch.float16)}
+
+
 @pytest.mark.parametrize("shape,dtype", [
     ((4, 20, 1500, 64), torch.float32),
     ((4, 20, 1500, 64), torch.bfloat16),
+    ((4, 20, 1500, 64), torch.float16),
+    ((16, 20, 1500, 64), torch.bfloat16),
     ((2, 4, 300, 64), torch.float32),
+    ((2, 4, 300, 64), torch.float16),
     ((3, 4, 250, 16), torch.float32),
+    ((3, 4, 250, 16), torch.float16),
     ((1, 2, 77, 32), torch.bfloat16)])
 def test_attention_kernel_matches_plain(gen, shape, dtype):
-    from crisperwhisper_tpu_torch.ops.fused_attention import fused_attention
+    """Each case against the plain version, on its route. The f16 and
+    batch-16 cases draw from a generator of their own, so the module's
+    shared stream, and every later test's inputs, stay as they were before
+    those cases existed."""
+    from crisperwhisper_tpu_torch.ops.fused_attention import (fused_attention,
+                                                              route)
+    if (shape, dtype) in _OWN_GENERATOR:
+        gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").mul(s)
                .to(dtype) for s in (0.3, 0.3, 1.0))
     before = fused_attention.launches
+    by_route = dict(fused_attention.route_launches)
     assert fused_attention(q, k, v).dtype == dtype
     err, band = testing.attention_error(q, k, v)
     assert fused_attention.launches == before + 2
+    path = route(dtype, shape[3])
+    assert path == ("cuda_cores" if dtype == torch.float32
+                    else "tensor_cores")
+    assert fused_attention.route_launches[path] == by_route[path] + 2
     assert err <= band
 
 
@@ -50,8 +72,8 @@ def test_attention_kernel_rejects_what_it_does_not_take(gen):
     with pytest.raises(ValueError):
         fused_attention(q, q, q)                    # head dim 128
     with pytest.raises(TypeError):
-        h = q[..., :64].contiguous().half()
-        fused_attention(h, h, h)                    # float16
+        h = q[..., :64].contiguous().double()
+        fused_attention(h, h, h)                    # float64
     with pytest.raises(ValueError):
         x = torch.zeros((1, 2, 64, 8), device="cuda").transpose(2, 3)
         fused_attention(x, x, x)                    # not contiguous
@@ -77,6 +99,24 @@ def test_align_prep_kernel_matches_plain(gen, b, a, t, m, crop):
     err, _ = testing.align_prep_error(w, nt, nf)
     assert align_prep.launches == before + 1
     assert err <= testing.PREP_BAND
+
+
+@pytest.mark.parametrize("width", [1, 3, 5, 9])
+def test_align_prep_kernel_any_width_matches_plain(gen, width):
+    """Median widths other than 7 (the reference app runs 3) on the
+    kernel, full rows and rows cropped at, just past and near the width
+    (the plain chain's reflection for n_frames <= width // 2 included)."""
+    from crisperwhisper_tpu_torch.ops.align_prep import align_prep
+    own = torch.Generator(device="cuda").manual_seed(width)  # gen untouched
+    for b, a, t, m, crop in ((4, 15, 96, 1500, 1000),
+                             (3, 3, 25, 250, width // 2),
+                             (2, 4, 9, 130, width // 2 + 1),
+                             (2, 3, 17, 200, width + 2)):
+        w, nt, nf = _prep_inputs(own, b, a, t, m, crop)
+        before = align_prep.launches
+        err, _ = testing.align_prep_error(w, nt, nf, width)
+        assert align_prep.launches == before + 1
+        assert err <= testing.PREP_BAND, (width, b, a, t, m, crop, err)
 
 
 @pytest.mark.parametrize("b,n,m", [(4, 96, 1500), (3, 25, 90), (2, 381, 1500),
@@ -111,6 +151,33 @@ def test_tiny_slice_on_card_matches_cpu(gen, tmp_path):
     gpu = testing.tiny_slice(ckpt, params, "cuda", audio)
     assert fused_attention.launches > before and len(gpu[0]["chunks"]) > 0
     assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND
+
+
+def test_tiny_float16_pipeline_on_card(gen, tmp_path):
+    """load_pipeline(dtype=torch.float16) answers a request on the card
+    with word timestamps, its encoder attention on the tensor-core route."""
+    import math
+
+    from crisperwhisper_tpu_torch.config import PipelineOptions, WhisperArch
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    from crisperwhisper_tpu_torch.ops.fused_attention import fused_attention
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    params = init_params(WhisperArch(**testing.TINY),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda", torch.float16)
+    po = PipelineOptions(chunk_length_s=testing.CHUNK_S, batch_size=16,
+                         return_timestamps="word")
+    pipe = load_pipeline(ckpt, dtype=torch.float16, device="cuda",
+                         params=params, pipe_opts=po)
+    before = fused_attention.route_launches["tensor_cores"]
+    res = pipe({"raw": testing.tone_audio(12.0, 0),
+                "sampling_rate": testing.SR}, return_timestamps="word",
+               adjust_pauses_threshold=0.12)
+    assert fused_attention.route_launches["tensor_cores"] > before
+    assert res["text"] and len(res["chunks"]) > 0
+    for c in res["chunks"]:
+        assert all(math.isfinite(x) and x >= 0 for x in c["timestamp"])
 
 
 @pytest.fixture(scope="module")
