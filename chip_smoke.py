@@ -21,10 +21,12 @@ Phases, one line each on stdout:
      large-v3 width (random int8 weights, random decoder biases and
      LayerNorms, a ring of 128 at position 60) for one row with int4 and
      int8 cross caches and four rows with int4, timed beside the
-     quantized non-kernel decode_step; then one row at position 0 (the
-     fresh column alone in the ring), untimed, and eight more position-0
-     draws printed with where their fresh columns first part, not
-     required (the position-0 check holds for some draws only); in each case also fresh
+     quantized non-kernel decode_step, with the kernel's phase split
+     (globaltimer stamps) from one untimed launch; then one row at
+     position 0 (the fresh column alone in the ring), untimed, and eight
+     more position-0 draws, each with where its fresh columns first part
+     printed; at position 0 hid and align are held against the plain
+     step fed the kernel's own fresh columns; in each case also fresh
      columns placed on the int8 rounding's ties; the verify-block (multi)
      mode at M = 5 with the same checks, timed beside the b1 mode, and
      at M = 1, where it must equal the b1 mode bit for bit; the beams
@@ -293,6 +295,14 @@ def _ptxas_summary(log: str, kernel: str) -> list[str]:
     return out
 
 
+def _print_phases(mode: str, ms: float, shares: dict) -> None:
+    """One line of the decode-step kernel's phase split (globaltimer
+    stamps of one untimed launch)."""
+    print(f"phase 2 decode_step phases {mode}: {ms:.4f} ms start to last "
+          "barrier; " + ", ".join(f"{k} {100 * v:.1f}%"
+                                  for k, v in shares.items()), flush=True)
+
+
 def phase2_kernels(large) -> list[dict]:
     import torch
     from crisperwhisper_tpu_torch import testing
@@ -412,10 +422,12 @@ def phase2_kernels(large) -> list[dict]:
     sel = alignment_selector(arch, heads)
     # ring 128 at position 60, then at position 0, where the fresh column
     # is the only live slot, so its bf16 scales weigh fully (checked, not
-    # timed). The position-0 hid and align checks hold for this draw, not
-    # for every draw: a fresh V value that rounds one int8 step apart on
-    # the two sides is there the head's only V slot and reaches hid whole
-    # (the scan below prints such draws; ROADMAP queue 3).
+    # timed). At position 0 hid and align are held against the plain step
+    # fed the kernel's own fresh columns, and those columns' values and
+    # bf16 scales against the plain step's own rounding
+    # (testing.decode_step_errors): a fresh V value or scale that rounds
+    # one step apart on the two sides is there the head's only V slot and
+    # would reach the unfed hid whole.
     for rows, cross, pos in ((1, "int4", 60), (1, "int8", 60),
                              (4, "int4", 60), (1, "int4", 0)):
         cache = testing.random_step_cache(arch, rows, cross, 128, pos, gen)
@@ -434,7 +446,7 @@ def phase2_kernels(large) -> list[dict]:
                 f"{pos}: " + ", ".join(f"{k} err {e:.3g} (band {b:.3g})"
                                        for k, (e, b) in errs.items()))
         if pos == 0:
-            print(line + " (this draw's; see the scan below)", flush=True)
+            print(line, flush=True)
             continue
         work = testing.clone_cache(cache)
         ms = _time_ms(lambda: ds.whole_step(qparams, arch, x0, pos, work,
@@ -448,6 +460,10 @@ def phase2_kernels(large) -> list[dict]:
         print(line + f"; kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
               f"quantized decode_step {step_ms:.3f} ms, bound "
               f"{bound:.4f} ms ({by})", flush=True)
+        if cross == "int4":
+            _print_phases(f"M={rows}" if rows > 1 else "b1",
+                          *testing.decode_step_phases(
+                              qparams, arch, x0, pos, cache, tuple(heads)))
         if rows == 4:
             rows_ms = ms
         if len(entries) == 3:           # the batch-1 serving case
@@ -462,10 +478,10 @@ def phase2_kernels(large) -> list[dict]:
     del work, cache
 
     # --- kernel 4 at position 0 over other draws (generators of their
-    # own): each draw's hid and align errors against the bands above, and
-    # where the fresh columns first part (testing.fresh_column_divergence).
-    # Printed, not required: these are the draws the check above does not
-    # hold for (ROADMAP queue 3).
+    # own): each draw's fed hid and align and its fresh values and scales
+    # held to the bands above, and where the fresh columns (values or
+    # bf16 scales) first part from the unfed plain step's printed
+    # (testing.fresh_column_divergence).
     for seed in range(8):
         g = torch.Generator(device=dev).manual_seed(100 + seed)
         cache = testing.random_step_cache(arch, 1, "int4", 128, 0, g)
@@ -486,18 +502,27 @@ def phase2_kernels(large) -> list[dict]:
             line += (f"; {sum(div['cells'])} fresh values differ in layers "
                      f"{live[0]}-{live[-1]} ({len(live)} layers), bf16 "
                      f"scales in {sum(div['scales'])}; first V layer "
-                     f"{div['first_v']}")
+                     f"{div['first_v']}, first scale layer "
+                     f"{div['first_scale']}")
         for li, at in div["at"].items():
+            parts = [f"{h} head {hd} dim {dm}: kernel {kq}, plain {pq}, "
+                     f"plain unrounded {u:.6f} ({m:.3g} steps from the "
+                     f"boundary; {uk:.6f} on the kernel's residual)"
+                     for h, hd, dm, kq, pq, u, m, uk in at["flips"][:4]]
+            parts += [f"{h} scale head {hd}: kernel {ks:.6g}, plain "
+                      f"{ps:.6g}, plain f32 {u:.9g} ({m:.3g} bf16 steps "
+                      f"from the boundary; {uk:.9g} on the kernel's "
+                      f"residual)"
+                      for h, hd, ks, ps, u, m, uk in at["scale_flips"][:4]]
             line += (f"; layer {li}: residual {at['hid_in']:.3g} of its "
                      f"largest apart, moving values up to "
                      f"{at['shift']:.3g} steps, bf16 scales apart "
-                     f"{div['scales'][li]}; " + "; ".join(
-                         f"{h} head {hd} dim {dm}: kernel {kq}, plain {pq}, "
-                         f"plain unrounded {u:.6f} ({m:.3g} steps from the "
-                         f"boundary; {uk:.6f} on the kernel's residual)"
-                         for h, hd, dm, kq, pq, u, m, uk
-                         in at["flips"][:4]))
+                     f"{div['scales'][li]}; " + "; ".join(parts))
         print(line, flush=True)
+        for name, (err, band) in errs.items():
+            _require(err <= band, f"decode step position-0 scan, seed "
+                                  f"{100 + seed}: {name} max err {err} > "
+                                  f"{band}")
     del cache
 
     # --- the verify-block (multi) mode: 5 tokens of one stream at 60
@@ -519,6 +544,8 @@ def phase2_kernels(large) -> list[dict]:
         qparams, arch, x0, 60, work, tuple(heads), multi=True), 3)
     bound, by = _bound(*_step_work(qparams, arch, cache, 60, 5, True,
                                    len(heads)), "f32")
+    _print_phases("multi M=5", *testing.decode_step_phases(
+        qparams, arch, x0, 60, cache, tuple(heads), multi=True))
     print("phase 2 decode_step multi: M=5 int4 cross, ring 128 at 60: "
           + ", ".join(f"{k} err {e:.3g} (band {b:.3g})"
                       for k, (e, b) in errs.items())
@@ -564,6 +591,8 @@ def phase2_kernels(large) -> list[dict]:
         qparams, arch, x0, 60, work, tuple(heads), beams=True), 3)
     bound, by = _bound(*_step_work(qparams, arch, cache, 60, 5, False,
                                    len(heads)), "f32")
+    _print_phases("beams R=5", *testing.decode_step_phases(
+        qparams, arch, x0, 60, cache, tuple(heads), beams=True))
     print("phase 2 decode_step beams: R=5, int4 cross of batch 1, rings 128 "
           "at 60: " + ", ".join(f"{k} err {e:.3g} (band {b:.3g})"
                                 for k, (e, b) in errs.items())

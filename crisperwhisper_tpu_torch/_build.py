@@ -134,7 +134,7 @@ def kernels() -> Kernels:
     lib.cw_dtw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cw_dtw.restype = i32
     lib.cw_decode_step.argtypes = [ptr] * 14 + [i32] * 14 + [
-        ctypes.c_float, ptr]
+        ctypes.c_float, ptr, ptr]
     lib.cw_decode_step.restype = i32
     lib.cw_ring_write.argtypes = [ptr] * 8 + [i32] * 9 + [ptr] + [i32] * 5 \
         + [ptr]

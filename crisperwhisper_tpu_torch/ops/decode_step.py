@@ -60,8 +60,14 @@ from ..models.whisper import (DecoderCache, _quantize, cache_values,
 
 MAX_ROWS = 8                     # rows of one step (the reference's cap)
 MODES = ("b1", "rows", "multi", "beams")
-THREADS = 512                    # block size of the CUDA kernel
-SMEM_LIMIT = 232448              # bytes of shared memory a block may use
+SMEM_LIMIT = 232448 - 1920       # dynamic shared memory a block may use:
+                                 # the card's 232448 less the kernel's static
+THREADS = 384                    # threads of a kernel block
+SPLIT = 128                      # cross keys of one kernel item (kSplit)
+MAX_SPLITS = 16                  # splits of a (row, head): K <= 2048
+ATTN_WARPS = 8                   # self-attention row warps a block holds
+PHASES = ("LN1+QKV", "self", "o", "LN2+cross-q", "cross", "combine+cross-o",
+          "LN3+fc1", "fc2")      # the kernel's phases, one barrier each
 _HEAD_DIMS = (16, 32, 64)
 _W_NAMES = (("self", "qkv"), ("self", "o"), ("cross", "q"), ("cross", "o"),
             ("mlp", "fc1"), ("mlp", "fc2"))
@@ -72,22 +78,30 @@ _W_NAMES = (("self", "qkv"), ("self", "o"), ("cross", "q"), ("cross", "o"),
 # ---------------------------------------------------------------------------
 
 
-def _smem_bytes(m: int, d: int, f: int, t_ring: int, k_enc: int) -> int:
-    """Dynamic shared memory of one kernel block: the GEMV input rows, or
-    the query, one score row and the P·V partial sums (a 64-wide row per
-    warp)."""
-    return 4 * max(m * max(d, f), 64 + max(t_ring, k_enc) + THREADS * 2)
+def _smem_bytes(m: int, arch: WhisperArch, t_ring: int) -> int:
+    """Dynamic shared memory of one kernel block (decode_step.cu
+    ``smem_bytes``): the largest of the GEMV input rows with, after them,
+    the cross combine's (max, sum) per (row, head) or a LayerNorm's gain
+    and shift; the self-attention row warps' queries, 64 staged V rows
+    and scores; two cross items' queries, scores, V scales, P·V partials
+    and V rows (up to M streams of Dh bytes a row)."""
+    d, f, h, dh = (arch.d_model, arch.decoder_ffn_dim,
+                   arch.decoder_attention_heads, arch.head_dim)
+    return max(4 * (m * max(d, f) + max(2 * m * h, 2 * d)),
+               4 * ATTN_WARPS * (1088 + -(-t_ring // 4) * 4),
+               2 * (4 * (m * (64 + 2 * SPLIT) + 4 * THREADS // 2)
+                    + m * SPLIT * dh))
 
 
 def _kernel_takes(arch: WhisperArch, cache: DecoderCache, m: int) -> bool:
     """The CUDA kernel's shape limits: 16-byte weight rows, a head dim
-    its attention loops take, and shared memory within one block."""
+    its attention loops take, at most MAX_SPLITS splits of the cross keys
+    and shared memory within one block."""
     return (arch.head_dim in _HEAD_DIMS
+            and cache.cross_k.shape[3] <= SPLIT * MAX_SPLITS
             and arch.d_model == arch.decoder_attention_heads * arch.head_dim
             and arch.d_model % 16 == 0 and arch.decoder_ffn_dim % 16 == 0
-            and _smem_bytes(m, arch.d_model, arch.decoder_ffn_dim,
-                            cache.self_k.shape[3], cache.cross_k.shape[3])
-            <= SMEM_LIMIT)
+            and _smem_bytes(m, arch, cache.self_k.shape[3]) <= SMEM_LIMIT)
 
 
 def _scalar(position) -> bool:
@@ -180,7 +194,8 @@ def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
                      position: int, cache: DecoderCache,
                      heads: tuple[tuple[int, int] | None, ...],
                      align_bf16: bool = False, multi: bool = False,
-                     beams: bool = False
+                     beams: bool = False, fresh: tuple | None = None,
+                     own: list | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's algebra in plain PyTorch. x0 [M, d] f32: row m is
     stream m of the rings and cross caches, or with ``multi`` the token at
@@ -190,7 +205,13 @@ def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
     (None: no source). Writes each layer's fresh K/V columns into the ring at
     ``position`` (M of them with ``multi``) in place and returns (hid [M,
     d] f32 — the residual stream after the last layer, align [M, A, K]
-    f32)."""
+    f32). ``fresh`` = (K, V, K scales, V scales), each [L, M, H(, Dh)]
+    with row m's column of layer l at [l, m] (``fresh_columns``), takes the
+    place of the step's own quantization of the fresh columns: fed another
+    side's columns, the step shows what that side computed from them.
+    ``own``, a list, takes the step's own K and V columns of each layer
+    in turn, quantized before any feeding: (int8 [M, H, Dh], bf16 scales
+    [M, H]) each."""
     m, d = x0.shape
     h, dh = arch.decoder_attention_heads, arch.head_dim
     live = position + (m if multi else 1)
@@ -211,9 +232,14 @@ def whole_step_plain(params: Any, arch: WhisperArch, x0: torch.Tensor,
         qkv = _gemv(_ln(xr, lp["ln1"]), lp["self"]["qkv"])
         q, k, v = (qkv[:, i * d:(i + 1) * d].reshape(m, h, dh)
                    for i in range(3))
-        for x, ring, scales in ((k, cache.self_k, cache.self_k_scale),
-                                (v, cache.self_v, cache.self_v_scale)):
+        for i, (x, ring, scales) in enumerate((
+                (k, cache.self_k, cache.self_k_scale),
+                (v, cache.self_v, cache.self_v_scale))):
             qv, sc = _quantize(x, 127.0)
+            if own is not None:
+                own.append((qv, sc))
+            if fresh is not None:
+                qv, sc = fresh[i][li], fresh[2 + i][li]
             if multi:
                 ring[li, 0, :, position:live] = qv.transpose(0, 1)
                 scales[li, 0, :, position:live] = sc.T
@@ -336,11 +362,14 @@ def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
                position: int, cache: DecoderCache,
                heads: tuple[tuple[int, int] | None, ...],
                align_bf16: bool = False, multi: bool = False,
-               beams: bool = False
+               beams: bool = False, stamps: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """``whole_step_plain``'s contract. CUDA tensors launch the kernel
     (csrc/decode_step.cu) once, counted in ``launches`` and by mode in
-    ``mode_launches``; CPU tensors take the plain version."""
+    ``mode_launches``; CPU tensors take the plain version. ``stamps``, an
+    int64 [8 L + 1] tensor on the card, takes the kernel's %globaltimer
+    at its start and after each of its 8 L grid barriers (``PHASES``
+    names a layer's eight)."""
     if x0.device.type == "cpu":
         return whole_step_plain(params, arch, x0, position, cache, heads,
                                 align_bf16, multi, beams)
@@ -381,8 +410,11 @@ def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
     hid = x0.clone()
     align = torch.zeros((m, len(heads), k_enc), dtype=torch.float32,
                         device=dev)
-    scratch = torch.empty((m * (5 * d + f),), dtype=torch.float32,
-                          device=dev)
+    if stamps is not None:
+        _check("stamps", stamps, torch.int64, (8 * n_layers + 1,), dev)
+    n_split = -(-k_enc // SPLIT)
+    scratch = torch.empty((m * (5 * d + f) + m * h * n_split * (dh + 2),),
+                          dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _build.kernels().lib.cw_decode_step(
@@ -394,7 +426,8 @@ def whole_step(params: Any, arch: WhisperArch, x0: torch.Tensor,
             cache.cross_v_scale.data_ptr(), table.data_ptr(),
             align.data_ptr(), m, n_layers, d, f, h, dh, t_ring, position,
             k_enc, len(heads), int(cross_int4), int(align_bf16), int(multi),
-            int(shared_cross), dh ** -0.5, stream)
+            int(shared_cross), dh ** -0.5,
+            0 if stamps is None else stamps.data_ptr(), stream)
     _build.check(err, "whole_step")
     whole_step.launches += 1
     whole_step.mode_launches["multi" if multi else "beams" if beams else

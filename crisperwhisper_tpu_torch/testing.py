@@ -45,13 +45,31 @@ PREP_BAND = 1e-5            # the reference align-prep kernel's band
 # 1.2e-5 of its largest magnitude and the alignment probabilities within
 # 3.5e-6; the bands are 3-4x the worst of those. At position 0 they hold
 # for some draws only: the fresh column is then the only live slot, so a
-# V value that rounds one int8 step apart on the two sides reaches hid
-# whole, and every later layer's values move with it; such sound draws
-# read tens of times the hid band (chip_smoke.py's position-0 scan,
-# testing.fresh_column_divergence). There the band does not tell a
-# fault from rounding: a kernel that used the f32 scale of the fresh
-# column instead of its bf16 rounding read 185x the band on one draw,
-# not far above them. Logits go through the serving head,
+# V value, or a V bf16 scale, that rounds one step apart on the two sides
+# reaches hid whole, and every later layer's values move with it (on one
+# draw a layer-3 V scale 1.5e-5 of a bf16 step from its rounding boundary
+# moved the residual entering layer 4 by 3.5e-4 of its largest; such
+# sound draws read tens of times the hid band, and a later value up to 2
+# int8 steps apart; testing.fresh_column_divergence shows where). So hid
+# and align are also held, at every position and alone at position 0,
+# against the plain step fed the kernel's own fresh columns, values and
+# bf16 scales (decode_step_errors' ``hid_fed`` / ``align_fed``): hid is
+# then held by the kernel's arithmetic, whatever the draw. A kernel that
+# used the f32 scale of the fresh column instead of its bf16 rounding read
+# 185x the unfed band on one draw, not far above what sound draws read
+# there. The fed columns themselves are held to the plain step's own
+# rounding of the same layer (``columns_fed``, ``scales_fed``): each value
+# within one int8 step and each bf16 scale within one bf16 step, and only
+# a few of them apart at all, since one parts only where its f32 value
+# before rounding sits within a few f32 ulps of a rounding boundary. On
+# an H100 at large-v3 (8 draws at position 0, 1-5 rows at 60) at most
+# 5.5e-5 of the values (18 of 4 rows' 327,680) and 7.8e-4 of the scales
+# (1 of a row's 1,280) parted; STEP_COLUMN_APART and STEP_SCALE_APART allow
+# 18x and 12x that, and a count of at most STEP_APART_FLOOR passes at any
+# size, for small shapes. A kernel whose scales were off by under one
+# percent (amax / 126, or 2^-8 over) keeps every value within a step and
+# hid_fed in band, but moves most of its scales
+# (tests/test_torch_decode_step.py). Logits go through the serving head,
 # which rounds hid to the activation dtype: with bf16 activations two
 # hids a few f32 ulps apart may round to neighbouring bf16 values, so the
 # logits band is at least one epsilon of that dtype of the largest logit
@@ -60,6 +78,10 @@ PREP_BAND = 1e-5            # the reference align-prep kernel's band
 STEP_REL_BAND = 5e-5
 STEP_ALIGN_BAND = 1e-5
 STEP_COLUMN_BAND = 1        # int8 steps
+STEP_SCALE_BAND = 1         # bf16 steps
+STEP_COLUMN_APART = 1e-3    # share of fresh values apart (fed compare)
+STEP_SCALE_APART = 1e-2     # share of fresh bf16 scales apart (fed compare)
+STEP_APART_FLOOR = 2        # counts apart that pass at any size
 TIE_UNIT = 1.0 / 16         # the f32 (and bf16) scale of a tie column
 # The fused log-mel kernel: the reference kernel's band against the rfft
 # frontend (tests/test_pallas_kernels.py:85), held against the plain twin
@@ -527,35 +549,109 @@ def clone_cache(cache):
                              if getattr(cache, f.name) is not None})
 
 
+def fresh_columns(cache, position: int, n: int = 1) -> tuple:
+    """The fresh columns a step wrote into ``cache`` at ``position`` (n of
+    them with the multi mode's n > 1): (K, V, K scales, V scales), each
+    [L, M, H(, Dh)], the layout ``whole_step_plain(fresh=...)`` takes."""
+    return tuple(_fresh(getattr(cache, name), position, n)
+                 for name in ("self_k", "self_v", "self_k_scale",
+                              "self_v_scale"))
+
+
 def decode_step_errors(params, arch: WhisperArch, x0: torch.Tensor,
                        position: int, cache, heads,
-                       multi: bool = False, beams: bool = False) -> dict:
+                       multi: bool = False, beams: bool = False,
+                       align_bf16: bool = False) -> dict:
     """The decode-step kernel (``whole_step``) against ``whole_step_plain``
-    on clones of one cache: {name: (max error, band)} for hid, the logits
-    of the serving head (``_lm_head``) on each, align and the fresh ring
-    columns (in int8 steps; all M of them with ``multi``). ``beams`` runs
-    the beams mode (a cache made with ``shared_cross``)."""
+    on clones of one cache: {name: (max error, band)} for
+
+      * ``hid_fed`` / ``align_fed``: hid and align against the plain
+        step fed the kernel's own fresh columns, values and bf16 scales
+        (``fresh=``; all M of them with ``multi``). A column that rounds
+        one int8 or bf16 step apart on the two sides (a value near a
+        rounding boundary) then reaches no later layer: these hold the
+        kernel to its arithmetic at every position;
+      * ``columns_fed`` / ``scales_fed``: the kernel's fresh values (int8
+        steps) and bf16 scales (bf16 steps) against that fed step's own
+        rounding of each layer (``own=``), and ``columns_fed_apart`` /
+        ``scales_fed_apart``: how many of them differ at all (a count,
+        its band a share of their number, at least STEP_APART_FLOOR);
+      * ``hid`` / ``align`` / ``columns``: against the plain step on its
+        own columns, at positions > 0 only. At position 0 the fresh column
+        is a head's only live slot, so one V value a step apart reaches
+        hid whole, moves every later layer's values with it (a later
+        column may then part by more than a step), and the fed compare
+        takes the place of this one;
+      * ``logits``: the serving head (``_lm_head``) on each hid, against
+        the fed plain step at position 0 and the unfed one elsewhere.
+
+    ``beams`` runs the beams mode (a cache made with ``shared_cross``),
+    ``align_bf16`` the bf16 alignment capture on both sides."""
     from .ops.decode_step import _lm_head, whole_step, whole_step_plain
-    kc, pc = clone_cache(cache), clone_cache(cache)
-    hid, align = whole_step(params, arch, x0, position, kc, heads,
-                            multi=multi, beams=beams)
+    kc, pc, fc = clone_cache(cache), clone_cache(cache), clone_cache(cache)
+    kw = dict(multi=multi, beams=beams, align_bf16=align_bf16)
+    hid, align = whole_step(params, arch, x0, position, kc, heads, **kw)
     rhid, ralign = whole_step_plain(params, arch, x0, position, pc, heads,
-                                    multi=multi, beams=beams)
-    dec = params["decoder"]
-    logits, rlogits = _lm_head(dec, hid), _lm_head(dec, rhid)
+                                    **kw)
     n = x0.shape[0] if multi else 1
+    fed, own = fresh_columns(kc, position, n), []
+    fhid, falign = whole_step_plain(params, arch, x0, position, fc, heads,
+                                    fresh=fed, own=own, **kw)
+    dec = params["decoder"]
+    ref = rhid if position > 0 else fhid
+    logits, rlogits = _lm_head(dec, hid), _lm_head(dec, ref)
     cols = max(int((_fresh(getattr(kc, name), position, n).int()
                     - _fresh(getattr(pc, name), position, n).int())
                    .abs().max()) for name in ("self_k", "self_v"))
+    # own holds (values, scales) per layer, K then V; mine is laid out as
+    # fed: (K, V, K scales, V scales), each [L, M, H(, Dh)]
+    mine = [torch.stack([c[j] for c in own[i::2]])
+            for j in (0, 1) for i in (0, 1)]
+    steps = torch.cat([(fed[i].int() - mine[i].int()).abs().flatten()
+                       for i in (0, 1)])
+    ulps = torch.cat([(fed[i].view(torch.int16).int()      # scales > 0
+                       - mine[i].view(torch.int16).int()).abs().flatten()
+                      for i in (2, 3)])
     rel = STEP_REL_BAND
     head_rel = max(rel, torch.finfo(dec["tok_emb"].dtype).eps)
-    return {
-        "hid": ((hid - rhid).abs().max().item(),
-                rel * rhid.abs().max().item()),
+    errs = {
+        "hid_fed": ((hid - fhid).abs().max().item(),
+                    rel * fhid.abs().max().item()),
+        "align_fed": ((align - falign).abs().max().item(), STEP_ALIGN_BAND),
+        "columns_fed": (int(steps.max()), STEP_COLUMN_BAND),
+        "columns_fed_apart": (int((steps > 0).sum()), max(
+            STEP_APART_FLOOR, STEP_COLUMN_APART * steps.numel())),
+        "scales_fed": (int(ulps.max()), STEP_SCALE_BAND),
+        "scales_fed_apart": (int((ulps > 0).sum()), max(
+            STEP_APART_FLOOR, STEP_SCALE_APART * ulps.numel())),
         "logits": ((logits - rlogits).abs().max().item(),
-                   head_rel * rlogits.abs().max().item()),
-        "align": ((align - ralign).abs().max().item(), STEP_ALIGN_BAND),
-        "columns": (cols, STEP_COLUMN_BAND)}
+                   head_rel * rlogits.abs().max().item())}
+    if position > 0:
+        errs["hid"] = ((hid - rhid).abs().max().item(),
+                       rel * rhid.abs().max().item())
+        errs["align"] = ((align - ralign).abs().max().item(),
+                         STEP_ALIGN_BAND)
+        errs["columns"] = (cols, STEP_COLUMN_BAND)
+    return errs
+
+
+def decode_step_phases(params, arch: WhisperArch, x0: torch.Tensor,
+                       position: int, cache, heads, multi: bool = False,
+                       beams: bool = False) -> tuple[float, dict]:
+    """One launch of the decode-step kernel on a clone of ``cache`` with
+    its phase stamps on: (milliseconds from its start to its last barrier
+    on the device's %globaltimer, {phase: share of that time} summed over
+    the layers, in ``ops.decode_step.PHASES`` order). Needs the card."""
+    from .ops.decode_step import PHASES, whole_step
+    stamps = torch.zeros((8 * arch.decoder_layers + 1,), dtype=torch.int64,
+                         device=x0.device)
+    whole_step(params, arch, x0, position, clone_cache(cache), heads,
+               multi=multi, beams=beams, stamps=stamps)
+    t = stamps.cpu().double()
+    steps = (t[1:] - t[:-1]).reshape(arch.decoder_layers, len(PHASES))
+    total = float(t[-1] - t[0])
+    return total / 1e6, {name: float(v) / total
+                         for name, v in zip(PHASES, steps.sum(0))}
 
 
 def _first_layers(params, arch: WhisperArch, cache, n: int):
@@ -571,18 +667,27 @@ def _first_layers(params, arch: WhisperArch, cache, n: int):
 
 
 def _unrounded_kv(lp: dict, arch: WhisperArch, hid: torch.Tensor):
-    """Layer ``lp``'s fresh K and V of residual ``hid`` [1, d] in int8
-    steps before rounding (x / (amax / 127), as ``_quantize`` divides),
-    each [H, Dh], by the plain step's algebra."""
+    """Layer ``lp``'s fresh K and V of residual ``hid`` [1, d] before
+    rounding, by the plain step's algebra: ([K, V] in int8 steps, x /
+    (amax / 127) as ``_quantize`` divides, each [H, Dh]; [K, V] f32 scales
+    amax / 127, each [H])."""
     from .ops.decode_step import _gemv, _ln
     d, h, dh = arch.d_model, arch.decoder_attention_heads, arch.head_dim
     qkv = _gemv(_ln(hid.float(), lp["ln1"]), lp["self"]["qkv"])
-    out = []
+    values, scales = [], []
     for i in (1, 2):
         x = qkv[0, i * d:(i + 1) * d].reshape(h, dh)
-        out.append(x / (x.abs().amax(-1, keepdim=True).clamp_min(1e-8)
-                        / 127.0))
-    return out
+        scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+        values.append(x / scale)
+        scales.append(scale[:, 0])
+    return values, scales
+
+
+def _bf16_margin(x: torch.Tensor) -> torch.Tensor:
+    """Distance of f32 ``x`` from its nearest bf16 rounding boundary, in
+    bf16 steps (0: on a tie)."""
+    low = (x.float().view(torch.int32) & 0xFFFF).double()
+    return (low - 0x8000).abs() / 0x10000
 
 
 def fresh_column_divergence(params, arch: WhisperArch, x0: torch.Tensor,
@@ -592,8 +697,9 @@ def fresh_column_divergence(params, arch: WhisperArch, x0: torch.Tensor,
 
       * ``cells`` / ``scales``: per layer, the K and V values, and the
         bf16 scales, that differ between the two;
-      * ``first`` / ``first_v``: the first layer with a differing value,
-        and with a differing V value (None: none);
+      * ``first`` / ``first_v`` / ``first_scale``: the first layer with
+        a differing value, with a differing V value, and with a differing
+        bf16 scale (None: none);
       * ``at``: for each of those layers, {``hid_in``: how far the
         kernel's residual entering it is from the plain one's, relative
         to the plain one's largest value; ``shift``: how far that moves
@@ -601,12 +707,18 @@ def fresh_column_divergence(params, arch: WhisperArch, x0: torch.Tensor,
         both residuals); ``flips``: its differing values as (half, head,
         dim, kernel's int8, plain int8, the plain value before rounding
         in int8 steps, that value's distance from the nearest rounding
-        boundary, the plain algebra's value on the kernel's residual)}.
+        boundary, the plain algebra's value on the kernel's residual);
+        ``scale_flips``: its differing bf16 scales as (half, head,
+        kernel's, plain, the plain f32 scale before rounding, its
+        distance from the nearest bf16 rounding boundary in bf16 steps,
+        the plain algebra's f32 scale on the kernel's residual)}.
 
     A value that sits within ``shift`` (or a few f32 ulps) of a boundary
-    may round either way on two correct sides. At position 0 a K value
-    so flipped changes nothing (the softmax of one score is 1), but a V
-    value is the only V slot of its head, and so reaches hid whole."""
+    may round either way on two correct sides, and so may a scale. At
+    position 0 a K value or scale so flipped changes nothing (the softmax
+    of one score is 1), but a V value, or a V scale (one bf16 step, 2^-8
+    to 2^-7 of the head's output), is the only V slot of its head, and so
+    reaches hid whole."""
     from .ops.decode_step import whole_step, whole_step_plain
     kc, pc = clone_cache(cache), clone_cache(cache)
     whole_step(params, arch, x0, position, kc, (None,))
@@ -624,7 +736,10 @@ def fresh_column_divergence(params, arch: WhisperArch, x0: torch.Tensor,
            "first": next((i for i, n in enumerate(cells) if n), None),
            "first_v": next((i for i, n in enumerate(v_cells) if n), None),
            "at": {}}
-    for li in sorted({out["first"], out["first_v"]} - {None}):
+    out["first_scale"] = next((i for i, n in enumerate(out["scales"]) if n),
+                              None)
+    for li in sorted({out["first"], out["first_v"], out["first_scale"]}
+                     - {None}):
         hk = hp = x0.float()
         if li > 0:
             p, a, c = _first_layers(params, arch, cache, li)
@@ -632,8 +747,8 @@ def fresh_column_divergence(params, arch: WhisperArch, x0: torch.Tensor,
             p, a, c = _first_layers(params, arch, cache, li)
             hp, _ = whole_step_plain(p, a, x0, position, c, (None,))
         lp = params["decoder"]["layers"][li]
-        uk, up = (_unrounded_kv(lp, arch, h) for h in (hk, hp))
-        flips = []
+        (uk, sk), (up, sp) = (_unrounded_kv(lp, arch, h) for h in (hk, hp))
+        flips, scale_flips = [], []
         for i, n in enumerate(halves):
             for head, dim in diff[i][li].nonzero().tolist():
                 u = up[i][head, dim].item()
@@ -642,11 +757,18 @@ def fresh_column_divergence(params, arch: WhisperArch, x0: torch.Tensor,
                               int(getattr(pc, n)[li, 0, head, position, dim]),
                               u, abs(abs(u) % 1.0 - 0.5),
                               uk[i][head, dim].item()))
+            ks = getattr(kc, n + "_scale")[li, 0, :, position]
+            ps = getattr(pc, n + "_scale")[li, 0, :, position]
+            for head in sdiff[i][li].nonzero()[:, 0].tolist():
+                scale_flips.append((n[-1].upper(), head, ks[head].item(),
+                                    ps[head].item(), sp[i][head].item(),
+                                    _bf16_margin(sp[i][head]).item(),
+                                    sk[i][head].item()))
         out["at"][li] = {
             "hid_in": ((hk - hp).abs().max() / hp.abs().max()).item(),
             "shift": max((a - b).abs().max().item()
                          for a, b in zip(uk, up)),
-            "flips": flips}
+            "flips": flips, "scale_flips": scale_flips}
     return out
 
 

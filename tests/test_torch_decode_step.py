@@ -234,7 +234,7 @@ def test_fresh_column_divergence_finds_the_first_flip(monkeypatch):
     assert testing.fresh_column_divergence(tq, arch, x0, 5, pc) == {
         "cells": [0] * arch.decoder_layers,
         "scales": [0] * arch.decoder_layers, "first": None,
-        "first_v": None, "at": {}}
+        "first_v": None, "first_scale": None, "at": {}}
     plain = T.whole_step
 
     def kernel(params, arch_, x0_, position, cache, heads, **kw):
@@ -251,7 +251,162 @@ def test_fresh_column_divergence_finds_the_first_flip(monkeypatch):
     [(half, head, dim, kq, pq, u, margin, uk)] = at["flips"]
     assert (half, head, dim, abs(kq - pq)) == ("V", 2, 5, 1)
     assert round(u) == pq and margin == abs(abs(u) % 1.0 - 0.5) <= 0.5
-    assert uk == u
+    assert uk == u and at["scale_flips"] == []
+
+
+def test_fresh_column_divergence_finds_the_first_scale_flip(monkeypatch):
+    """A stand-in kernel that stores one V scale of layer 0 a bf16 step
+    up: fresh_column_divergence names that layer's scale, with the plain
+    f32 scale that rounds to the plain bf16 one, and no differing value."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.ops import decode_step as T
+    arch, jq, _, tq = quantized_tiny()
+    _, pc = _caches(arch, jq, 1, jnp.int8)
+    x0 = torch.randn((1, arch.d_model),
+                     generator=torch.Generator().manual_seed(8))
+    plain = T.whole_step
+
+    def kernel(params, arch_, x0_, position, cache, heads, **kw):
+        out = plain(params, arch_, x0_, position, cache, heads, **kw)
+        if arch_.decoder_layers == 2:
+            bits = cache.self_v_scale[0, 0, 2, position].view(torch.int16)
+            cache.self_v_scale[0, 0, 2, position] = (bits + 1).view(
+                torch.bfloat16)
+        return out
+    monkeypatch.setattr(T, "whole_step", kernel)
+    div = testing.fresh_column_divergence(tq, arch, x0, 3, pc)
+    assert div["first"] is None and div["first_scale"] == 0
+    assert div["scales"] == [1, 0] and list(div["at"]) == [0]
+    at = div["at"][0]
+    assert at["flips"] == [] and at["hid_in"] == at["shift"] == 0.0
+    [(half, head, ks, ps, u, margin, uk)] = at["scale_flips"]
+    assert (half, head) == ("V", 2) and ks > ps and uk == u
+    assert torch.tensor(u).to(torch.bfloat16).item() == ps
+    assert 0.0 <= margin <= 0.5
+
+
+def _fed_case(mode):
+    """(params, arch, x0, position, cache, kw) of one mode on the TINY
+    quantized decoder at position 0 (the fresh column alone in the
+    ring), for the plain step fed columns."""
+    from crisperwhisper_tpu_torch import testing
+    arch, _, _, tq = quantized_tiny()
+    rows = {"b1": 1, "rows": 3, "multi": 4, "beams": 3}[mode]
+    gen = torch.Generator().manual_seed(11)
+    cache = testing.random_step_cache(
+        arch, 1 if mode == "multi" else rows, "int4", 32, 0, gen,
+        shared_cross=mode == "beams")
+    x0 = torch.randn((rows, arch.d_model), generator=gen)
+    kw = {"multi": mode == "multi", "beams": mode == "beams"}
+    return tq, arch, x0, cache, kw
+
+
+@pytest.mark.parametrize("mode", ["b1", "rows", "multi", "beams"])
+def test_plain_fed_its_own_columns_is_unchanged(mode):
+    """whole_step_plain fed the fresh columns it wrote itself
+    (testing.fresh_columns) gives the unfed step's hid, alignment rows and
+    rings bit for bit, in every mode."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step_plain
+    tq, arch, x0, cache, kw = _fed_case(mode)
+    a, b = testing.clone_cache(cache), testing.clone_cache(cache)
+    heads = ((0, 1), (1, 3))
+    hid, align = whole_step_plain(tq, arch, x0, 0, a, heads, **kw)
+    n = x0.shape[0] if kw["multi"] else 1
+    fed = testing.fresh_columns(a, 0, n)
+    hid2, align2 = whole_step_plain(tq, arch, x0, 0, b, heads, fresh=fed,
+                                    **kw)
+    assert torch.equal(hid, hid2) and torch.equal(align, align2)
+    for name in ("self_k", "self_v", "self_k_scale", "self_v_scale"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("mode", ["b1", "multi"])
+def test_plain_fed_a_column_a_step_off_moves_hid(mode):
+    """Fed one V value of layer 0 one int8 step off, the plain step
+    writes that value into the ring and its hid moves: the argument is
+    live. decode_step_errors (CPU: the kernel is the plain step) reads
+    every error 0 with the fed compare in place of the unfed one at
+    position 0."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step_plain
+    tq, arch, x0, cache, kw = _fed_case(mode)
+    a, b = testing.clone_cache(cache), testing.clone_cache(cache)
+    hid, _ = whole_step_plain(tq, arch, x0, 0, a, (None,), **kw)
+    n = x0.shape[0] if kw["multi"] else 1
+    k, v, ks, vs = (t.clone() for t in testing.fresh_columns(a, 0, n))
+    v[0, 0, 1, 3] += 1 if v[0, 0, 1, 3] < 127 else -1
+    hid2, _ = whole_step_plain(tq, arch, x0, 0, b, (None,),
+                               fresh=(k, v, ks, vs), **kw)
+    assert b.self_v[0, 0, 1, 0, 3] == v[0, 0, 1, 3]
+    assert not torch.equal(hid, hid2)
+    errs = testing.decode_step_errors(tq, arch, x0, 0, cache, ((0, 1),),
+                                      **kw)
+    assert set(errs) == {"hid_fed", "align_fed", "columns_fed",
+                         "columns_fed_apart", "scales_fed",
+                         "scales_fed_apart", "logits"}
+    assert all(e == 0 for e, _ in errs.values()), errs
+    errs = testing.decode_step_errors(tq, arch, x0, 5, cache, ((0, 1),),
+                                      **kw)
+    assert {"hid", "align", "columns"} <= set(errs)
+
+
+@pytest.mark.parametrize("mode", ["b1", "multi"])
+@pytest.mark.parametrize("fault", ["amax_over_126", "scale_2^-8_over"])
+def test_decode_step_errors_catch_a_wrong_fresh_scale(monkeypatch, mode,
+                                                      fault):
+    """A stand-in kernel whose fresh scales are off by under one percent,
+    and which uses them in its own attention (amax / 126 for values and
+    scale, or the bf16 scale stored 2^-8 over): fed its columns, the
+    plain step reproduces its hid, and no value is more than an int8 step
+    from the plain step's own. decode_step_errors fails it at position 0
+    all the same, on how many of its fresh scales (and, for amax / 126,
+    values) part from the plain step's own rounding."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.ops import decode_step as T
+    tq, arch, x0, cache, kw = _fed_case(mode)
+    plain, quantize = T.whole_step, T._quantize
+
+    def wrong(x, qmax):
+        if fault == "amax_over_126":
+            return quantize(x, qmax - 1)
+        q, sc = quantize(x, qmax)
+        return q, (sc.float() * (1 + 2 ** -8)).to(torch.bfloat16)
+
+    def kernel(*args, **kwargs):
+        monkeypatch.setattr(T, "_quantize", wrong)
+        try:
+            return plain(*args, **kwargs)
+        finally:
+            monkeypatch.setattr(T, "_quantize", quantize)
+    monkeypatch.setattr(T, "whole_step", kernel)
+    errs = testing.decode_step_errors(tq, arch, x0, 0, cache, ((0, 1),),
+                                      **kw)
+    over = {name for name, (err, band) in errs.items() if err > band}
+    assert not over & {"hid_fed", "align_fed", "columns_fed", "logits"}
+    assert "scales_fed_apart" in over, errs
+    if fault == "amax_over_126":
+        assert "columns_fed_apart" in over, errs
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """The wrapper's copies of csrc/decode_step.cu's constants, which its
+    shared-memory gate and scratch size are computed from, equal the
+    source's."""
+    import re
+    from pathlib import Path
+    from crisperwhisper_tpu_torch.ops import decode_step as T
+    src = (Path(T.__file__).parents[1] / "csrc"
+           / "decode_step.cu").read_text()
+    k = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src,
+                                 re.M):
+        k[name] = eval(expr.replace("/", "//"), {}, dict(k))
+    assert (T.THREADS, T.MAX_ROWS, T.SPLIT, T.MAX_SPLITS, T.ATTN_WARPS) == (
+        k["kThreads"], k["kMaxRows"], k["kSplit"], k["kMaxSplits"],
+        k["kAttnWarps"])
+    assert T.SMEM_LIMIT == k["kMaxDynSmem"]
+    assert T.THREADS // 2 == k["kHalf"]
 
 
 def test_plain_multi_rounds_ties_half_to_even():
@@ -345,7 +500,8 @@ def test_gates_match_reference(rows):
 
 
 def test_gate_takes_the_kernels_shape_limits():
-    """A head dim the CUDA kernel does not take fails the gate."""
+    """A head dim, an ffn width or a cross length the CUDA kernel does not
+    take fails the gate."""
     from crisperwhisper_tpu_torch.ops import decode_step as T
     arch, jq, _, tq = quantized_tiny()
     _, pc = _caches(arch, jq, 1, jnp.int8)
@@ -354,6 +510,19 @@ def test_gate_takes_the_kernels_shape_limits():
     assert not T._kernel_takes(wide, pc, 1)
     odd = replace(arch, decoder_ffn_dim=136 + 4)
     assert not T._kernel_takes(odd, pc, 1)
+    long = replace(pc, cross_k=torch.zeros(pc.cross_k.shape[:3] + (
+        T.SPLIT * T.MAX_SPLITS + 1, arch.head_dim), dtype=torch.int8))
+    assert not T._kernel_takes(arch, long, 1)             # K > 2048
+    assert T._kernel_takes(arch, replace(long, cross_k=long.cross_k[
+        :, :, :, :T.SPLIT * T.MAX_SPLITS]), 8)
+    # large-v3 at M = 8 on the serving ring (448 + a verify block of 5)
+    from types import SimpleNamespace
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    lv3 = WhisperArch.large_v3()
+    meta = SimpleNamespace(
+        self_k=torch.empty((32, 8, 20, 453, 64), device="meta"),
+        cross_k=torch.empty((32, 8, 20, 1500, 32), device="meta"))
+    assert T._kernel_takes(lv3, meta, 8)
 
 
 # ---------------------------------------------------------------------------

@@ -240,6 +240,60 @@ def test_decode_step_kernel_rejects_what_it_does_not_take(gen, tiny_quant):
         whole_step(params, arch, x0, 32, cache, (None,))    # past the ring
 
 
+# (mode, rows, cross keys, cross dtype, align_bf16): every mode at M = 1,
+# 2, 5 and 8; K below one split of the kernel's cross attention (128
+# keys), not a multiple of it (250, TINY's own) and large-v3's 1500; both
+# cross dtypes and both alignment captures in each mode.
+_SPLIT_CASES = [
+    ("rows", 1, 77, "int8", False), ("rows", 2, 250, "int4", True),
+    ("rows", 5, 1500, "int8", True), ("rows", 8, 1500, "int4", False),
+    ("multi", 1, 1500, "int4", True), ("multi", 2, 77, "int8", False),
+    ("multi", 5, 250, "int4", False), ("multi", 8, 1500, "int8", True),
+    ("beams", 1, 250, "int8", False), ("beams", 2, 1500, "int4", False),
+    ("beams", 5, 77, "int4", True), ("beams", 8, 250, "int8", True)]
+
+
+@pytest.mark.parametrize("mode,rows,k_enc,cross,align_bf16", _SPLIT_CASES)
+def test_decode_step_kernel_splits_cross_keys(gen, tiny_quant, mode, rows,
+                                              k_enc, cross, align_bf16):
+    """The cross attention split over keys and combined in the next phase:
+    hid, logits, alignment (f32 or bf16) and fresh columns within
+    testing's bands against the plain step, one launch in its mode."""
+    from crisperwhisper_tpu_torch.ops.decode_step import whole_step
+    arch, params = tiny_quant
+    multi, beams = mode == "multi", mode == "beams"
+    cache = testing.random_step_cache(arch, 1 if multi else rows, cross, 96,
+                                      9, gen, k_enc=k_enc,
+                                      shared_cross=beams)
+    x0 = torch.randn((rows, arch.d_model), generator=gen, device="cuda")
+    key = mode if multi or beams else "b1" if rows == 1 else "rows"
+    before = whole_step.mode_launches[key]
+    errs = testing.decode_step_errors(params, arch, x0, 9, cache,
+                                      ((0, 1), (1, 3), (0, 2)), multi=multi,
+                                      beams=beams, align_bf16=align_bf16)
+    assert whole_step.mode_launches[key] == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_decode_step_kernel_at_position_zero_holds_fed_bands(tiny_quant,
+                                                            seed):
+    """At position 0 the fresh column is a head's only live slot: hid,
+    align and the fresh columns against the plain step fed the kernel's
+    own fresh columns, within testing's bands, for 8 draws of their
+    own."""
+    arch, params = tiny_quant
+    g = torch.Generator(device="cuda").manual_seed(100 + seed)
+    cache = testing.random_step_cache(arch, 1, "int4", 96, 0, g)
+    x0 = torch.randn((1, arch.d_model), generator=g, device="cuda")
+    errs = testing.decode_step_errors(params, arch, x0, 0, cache,
+                                      ((0, 1), (1, 3)))
+    assert {"hid_fed", "align_fed", "columns_fed"} <= set(errs)
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+
+
 @pytest.mark.parametrize("seconds", [5.0, 12.0])
 def test_tiny_serving_slice_on_card_matches_cpu(gen, tmp_path, seconds):
     """quantize="serving" with the whole-step kernel: one window (the b1
