@@ -35,13 +35,16 @@ Phases, one line each on stdout:
      cache repeated per row, timed beside b1 and rows at M = 4; the
      ring-write kernel at large-v3 width, batch 16, 5 columns a row, for
      bf16, int8 (with scales) and packed int4 rings, bit-identical to its
-     plain version, timed per call and, replayed from a CUDA graph, on
-     the device alone; the fused log-mel at the CLI's batch of 16 windows
-     x 128 mels (beside extract_features, torch.stft); the int8 cross
+     plain version, timed per call with the rings' plan at hand (as
+     models/whisper.py calls it) and looking it up, and, replayed from a
+     CUDA graph, on the device alone; the fused log-mel at the CLI's
+     batch of 16 windows x 128 mels (beside extract_features,
+     torch.stft); the int8 cross
      attention of v1 and v2 at B = 16, H = 20, K = 1500 with an f32 q; the
      stacked-cache attention (v3) at the reference microbench's shape (L
      = 2, B = 64, H = 20, T = 1536, sel of 15 heads) for int8, int4 and
-     bf16 caches; the probe kernel, exact. Each timed kernel also prints
+     bf16 caches; the probe kernel, exact, timed per call and from a CUDA
+     graph. Each timed kernel also prints
      its bound (the bytes it must move over 3.35 TB/s, or its operations
      over the peak rate of their type, whichever is larger; for the
      log-mel the operations of an FFT, and its own design's DFT product
@@ -78,7 +81,11 @@ Phases, one line each on stdout:
      speculatively with every count reset just before and read just
      after; it prints both walls, the acceptance rate, the token agreement
      with greedy (at least 0.9, the reference's band) and the launches by
-     kernel and mode;
+     kernel and mode, and for (a) the host seconds spent inside the
+     ring-write wrapper that models/whisper.py calls (a host clock around
+     each call, no sync), a call's mean, the part of it spent in the
+     launch (the ctypes call of the C entry, which waits when the card's
+     launch queue is full) and their share of the wall;
   7. beams and prompts at large-v3 geometry: (a) num_beams=5 on the
      default path on the 60 s WAV (3 windows, one cross cache per item),
      (b) quantize="serving" with b1_decode_kernel and num_beams=5 on the
@@ -610,10 +617,13 @@ def phase2_kernels(large) -> list[dict]:
         pairs, pos = testing.ring_write_inputs(arch, 16, 5, ring, kind, gen)
         err = testing.ring_write_error(pairs, 7, pos)
         _require(err == 0, f"ring_write {kind}: {err} bytes differ")
-        ms = _time_ms(lambda: rw.write_block_columns_group(pairs, 7, pos),
-                      200)
-        device_ms = _graph_ms(
+        plan = rw.ring_plan([ring for ring, _ in pairs])
+        ms = _time_ms(   # as models/whisper.py calls it: the plan at hand
+            lambda: rw.write_block_columns_group(pairs, 7, pos, plan), 200)
+        lookup_ms = _time_ms(
             lambda: rw.write_block_columns_group(pairs, 7, pos), 200)
+        device_ms = _graph_ms(
+            lambda: rw.write_block_columns_group(pairs, 7, pos, plan), 200)
         pos_h = pos.cpu()
         plain_ms = _time_ms(lambda: rw.write_block_columns_plain(
             pairs, 7, pos_h), 20)
@@ -622,7 +632,8 @@ def phase2_kernels(large) -> list[dict]:
         bound, by = _bound(2 * _nbytes(*(blk for _, blk in pairs)), 0.0,
                            "f32")
         rows.append(f"{kind} bit-identical, {ms:.4f} ms a call "
-                    f"({device_ms:.4f} ms on the device, from a CUDA graph) "
+                    f"({lookup_ms:.4f} ms looking the plan up; "
+                    f"{device_ms:.4f} ms on the device, from a CUDA graph) "
                     f"vs plain {plain_ms:.4f} ms, index_put_ {lib_ms:.4f} "
                     f"ms, bound {bound:.5f} ms ({by})")
         if kind == "bf16":              # the default path's ring
@@ -767,10 +778,12 @@ def phase2_remaining(large) -> list[dict]:
     err = int((probe.probe_add(x) != x * 2.0).sum())
     _require(err == 0, f"probe_add: {err} values differ from x * 2")
     ms = _time_ms(lambda: probe.probe_add(x), 200)
+    device_ms = _graph_ms(lambda: probe.probe_add(x), 200)
     plain_ms = _time_ms(lambda: x * 2.0, 200)
     lib_ms = _time_ms(lambda: torch.mul(x, 2.0), 200)
     bound, by = _bound(2 * _nbytes(x), x.numel(), "f32")
-    print(f"phase 2 probe_add: [8, 128] f32 exact; {ms:.4f} ms vs plain "
+    print(f"phase 2 probe_add: [8, 128] f32 exact; {ms:.4f} ms a call "
+          f"({device_ms:.4f} ms on the device, from a CUDA graph) vs plain "
           f"{plain_ms:.4f} ms, torch.mul {lib_ms:.4f} ms, bound "
           f"{bound:.7f} ms ({by})", flush=True)
     entries.append({
@@ -1078,12 +1091,30 @@ def phase6_speculative(tmp: str, large) -> dict[str, int]:
     """Speculative decoding at large-v3 geometry, three requests, each
     after a greedy run of the same request. Returns the launches of the
     speculative runs: ring_write of (a), decode_step of (b) and (c)."""
-    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch import _build, testing
     from crisperwhisper_tpu_torch.decoding import assisted
     from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.models import whisper
 
     arch, params = large
     wav, arr = _large_requests(tmp)
+    real_write, real_launcher = (whisper.write_block_columns_group,
+                                 _build.launcher)
+    inside = [0.0, 0.0]          # host seconds in the ring-write wrapper,
+                                 # and in its launch (ctypes + cuLaunchKernel)
+
+    def timed(fn, i):            # a host clock, no sync
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[i] += time.perf_counter() - t0
+        return call
+
+    def timed_launcher(entry):
+        launch = real_launcher(entry)
+        return timed(launch, 1) if entry == "cw_ring_write" else launch
     cases = (("a", False, "prompt_lookup", wav, ("ring_write",)),
              ("b", "serving", "prompt_lookup", arr, ("decode_step_multi",)),
              ("c", "serving", "self:4", arr,
@@ -1091,6 +1122,8 @@ def phase6_speculative(tmp: str, large) -> dict[str, int]:
     real = assisted.assisted_decode
     totals = {"ring_write": 0, "decode_step": 0}
     lines = []
+    whisper.write_block_columns_group = timed(real_write, 0)
+    _build.launcher = timed_launcher
     try:
         for label, quantize, assistant, (req, dur), needs in cases:
             pipe = load_pipeline(_large_ckpt(tmp, arch), params=params,
@@ -1107,6 +1140,7 @@ def phase6_speculative(tmp: str, large) -> dict[str, int]:
                 counts: dict = {}
                 assisted.assisted_decode = (
                     lambda *a, _c=counts, **kw: real(*a, counts=_c, **kw))
+                inside[:] = [0.0, 0.0]
                 wall, toks, launches, res = _request(pipe, req)
                 runs[name] = (wall, toks, launches, counts, res)
             wall, toks, launches, counts, res = runs["assisted"]
@@ -1122,14 +1156,24 @@ def phase6_speculative(tmp: str, large) -> dict[str, int]:
             totals["ring_write"] += launches["ring_write"] \
                 if label == "a" else 0
             totals["decode_step"] += launches["decode_step"]
+            n_writes = launches["ring_write"]
+            per_call = 1e3 / max(n_writes, 1)
+            wrapper = (f", ring-write wrapper {inside[0]:.4f} s on the host "
+                       f"over {n_writes} launches "
+                       f"({per_call * inside[0]:.4f} ms a call, of which "
+                       f"{per_call * inside[1]:.4f} ms in its launch; "
+                       f"{100 * inside[0] / wall:.2f}% of the wall)"
+                       if label == "a" else "")
             lines.append(
                 f"({label}) {'serving' if quantize else 'bf16'} {assistant} "
                 f"{dur:.0f} s: {wall:.2f} s wall (greedy "
                 f"{runs['greedy'][0]:.2f} s), {counts.get('blocks', 0)} "
                 f"verify blocks, acceptance {rate:.3f}, agreement with "
-                f"greedy {agree:.3f}, launches {launches}")
+                f"greedy {agree:.3f}{wrapper}, launches {launches}")
     finally:
         assisted.assisted_decode = real
+        whisper.write_block_columns_group = real_write
+        _build.launcher = real_launcher
     print("phase 6 ok: large-v3 speculative decoding; " + "; ".join(lines),
           flush=True)
     return totals

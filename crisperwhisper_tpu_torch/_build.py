@@ -21,9 +21,18 @@ kernel's DFT feeds ``log10f``, where approximate arithmetic would show
 in the quiet bins. ``compile_object`` compiles one
 source alone (the probe ladder runs it a source at a time).
 
-Each C entry returns ``cudaGetLastError()`` after its launch; ``check``
-raises on anything but 0, because a refused launch never runs and a later
-``torch.cuda.synchronize()`` would not report it.
+Each C entry returns its launch's error code (``cudaGetLastError()``, or
+the ``CUresult`` of ``cuLaunchKernel`` for the kernels launched
+through ``csrc/launch.cuh``); ``check`` raises on anything but 0, because a
+refused launch never runs and a later ``torch.cuda.synchronize()`` would
+not report it.
+
+``launcher`` is the lean path from a wrapper to its C entry, for kernels
+that take less time on the card than a wrapper's usual host work (the
+ring writes and the probe): the raw handle of PyTorch's current stream
+(``current_stream``, no Python Stream object), a device guard only when
+the tensors' device is not the current one, one ctypes call, and
+``check``.
 """
 
 from __future__ import annotations
@@ -39,11 +48,14 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("encoder_attention.cu", "dtw.cu", "decode_step.cu",
            "ring_write.cu", "log_mel.cu", "decode_attention.cu", "probe.cu")
+HEADERS = ("launch.cuh",)       # included by sources; part of the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -69,7 +81,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -136,8 +148,7 @@ def kernels() -> Kernels:
     lib.cw_decode_step.argtypes = [ptr] * 14 + [i32] * 14 + [
         ctypes.c_float, ptr, ptr]
     lib.cw_decode_step.restype = i32
-    lib.cw_ring_write.argtypes = [ptr] * 8 + [i32] * 9 + [ptr] + [i32] * 5 \
-        + [ptr]
+    lib.cw_ring_write.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.cw_ring_write.restype = i32
     lib.cw_log_mel.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.cw_log_mel.restype = i32
@@ -159,3 +170,42 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = kernels().lib.cw_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed ({err}: {msg})")
+
+
+@functools.cache
+def _cuda_api():
+    """(current device index, raw handle of a device's current stream):
+    PyTorch's own getters, private (a card test pins them to the public
+    ones) and present only in a CUDA build, so looked up at the first
+    launch."""
+    return torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device ``index``:
+    ``torch.cuda.current_stream(index).cuda_stream`` without building a
+    Stream object (under ``torch.cuda.stream`` and during graph capture
+    alike)."""
+    return _cuda_api()[1](index)
+
+
+@functools.cache
+def launcher(entry: str):
+    """``launch(index, *args)``: the library's C entry ``entry`` called as
+    ``entry(*args, stream)`` on PyTorch's current stream of CUDA device
+    ``index``, under a device guard only when that device is not the
+    current one; raises on a launch error, naming the entry without its
+    ``cw_`` prefix. Built once per entry, so a call looks nothing up."""
+    fn = getattr(kernels().lib, entry)
+    name = entry.removeprefix("cw_")
+    device, stream = _cuda_api()
+
+    def launch(index: int, *args) -> None:
+        if device() == index:
+            err = fn(*args, stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, stream(index))
+        if err:
+            check(err, name)
+    return launch

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from ..config import WhisperArch
 
 from ..ops.fused_attention import fused_attention
-from ..ops.ring_write import write_block_columns_group
+from ..ops.ring_write import ring_plan, write_block_columns_group
 
 Params = dict[str, Any]
 
@@ -374,24 +374,34 @@ def _quantized_block(x: torch.Tensor, kind: str
     return _store(q, kind), sc
 
 
+def _self_rings(cache: DecoderCache) -> list[torch.Tensor]:
+    """The self-attention rings a block writes: K, V and, for a quantized
+    ring, their scale rings."""
+    if cache.self_k_scale is None:
+        return [cache.self_k, cache.self_v]
+    return [cache.self_k, cache.self_v, cache.self_k_scale,
+            cache.self_v_scale]
+
+
 def _write_block(cache: DecoderCache, li: int, position: int,
                  pos_rows: torch.Tensor | None, k_new: torch.Tensor,
-                 v_new: torch.Tensor) -> None:
+                 v_new: torch.Tensor, plan=None) -> None:
     """Write the new K/V rows [B, H, S, Dh] of layer li into the self
     ring (quantized over Dh when it is): at slots [position, position + S)
     for a scalar position, else row b at [pos_rows[b], pos_rows[b] + S)
-    through ops/ring_write.py, all tensors in one call."""
-    pairs = [(cache.self_k, k_new), (cache.self_v, v_new)]
+    through ops/ring_write.py, all tensors in one call (``plan``: the
+    rings' launch plan, looked up once a block)."""
+    blocks = [k_new, v_new]
     if cache.self_k_scale is not None:
         kind = _kind(cache.self_k)
         (kq, ks), (vq, vs) = (_quantized_block(k_new, kind),
                               _quantized_block(v_new, kind))
-        pairs = [(cache.self_k, kq), (cache.self_v, vq),
-                 (cache.self_k_scale, ks), (cache.self_v_scale, vs)]
+        blocks = [kq, vq, ks, vs]
+    pairs = list(zip(_self_rings(cache), blocks))
     if pos_rows is not None:
         write_block_columns_group(
             [(ring, blk.to(ring.dtype)) for ring, blk in pairs], li,
-            pos_rows)
+            pos_rows, plan)
         return
     end = position + k_new.shape[2]
     for ring, blk in pairs:
@@ -463,11 +473,13 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
     aligned = torch.zeros((b, n_align, s, cache.cross_k.shape[3]),
                           dtype=torch.float32, device=dev)
     heads = _heads_by_layer(align_sel, arch.decoder_layers)
+    plan = (ring_plan(_self_rings(cache))
+            if pos_rows is not None and cache.self_k.is_cuda else None)
 
     for li, lp in enumerate(dec["layers"]):
         y = layer_norm(x, lp["ln1"])
         q, k_new, v_new = _self_qkv(y, lp["self"], h, scale)
-        _write_block(cache, li, lo, pos_rows, k_new, v_new)
+        _write_block(cache, li, lo, pos_rows, k_new, v_new, plan)
         if self_quant:
             out, _ = quantized_attention(
                 q, cache.self_k[li, :, :, :end], cache.self_v[li, :, :, :end],

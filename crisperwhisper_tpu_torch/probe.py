@@ -39,19 +39,17 @@ RUNGS = CARD_RUNGS + _build.SOURCES
 def probe_add(x: torch.Tensor) -> torch.Tensor:
     """``x * 2`` for a contiguous f32 tensor: the kernel on the card, the
     plain version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return x * 2.0
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return x * 2.0
         raise ValueError(f"probe_add: unsupported device {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() == 0:
+    n = x.numel()
+    if x.dtype is not torch.float32 or not x.is_contiguous() or n == 0:
         raise ValueError(f"probe_add: x must be a non-empty contiguous "
                          f"float32 tensor, got {x.dtype} {tuple(x.shape)}")
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _build.kernels().lib.cw_probe_add(x.data_ptr(), out.data_ptr(),
-                                                x.numel(), stream)
-    _build.check(err, "probe_add")
+    _build.launcher("cw_probe_add")(x.get_device(), x.data_ptr(),
+                                    out.data_ptr(), n)
     probe_add.launches += 1
     return out
 

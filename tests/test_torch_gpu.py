@@ -328,6 +328,162 @@ def test_ring_write_kernel_matches_plain_bitwise(gen, tiny_quant, kind, rows,
     assert write_block_columns_group.launches == before + 1
 
 
+def _bytes_equal(got, want) -> bool:
+    """Every ring of two lists of (ring, block) pairs equal byte for byte."""
+    return all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+               for (g, _), (w, _) in zip(got, want))
+
+
+def _fresh_blocks(pairs, gen) -> None:
+    """New random bytes in every block, in place."""
+    for _, blk in pairs:
+        blk.view(torch.uint8).copy_(torch.randint(
+            0, 256, blk.view(torch.uint8).shape, generator=gen,
+            device="cuda", dtype=torch.uint8))
+
+
+def test_ring_write_plan_follows_the_live_rings(gen, tiny_quant):
+    """One plan a set of rings, reused over every layer of two caches in
+    turn (two plans built, all later calls find theirs; the first cache's
+    plan passed in, as models/whisper.py does); then a ring replaced by a
+    clone, called with the stale plan: the writes land in the clone, byte
+    for byte as the plain version's, and the replaced ring is left as it
+    was."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    arch, _ = tiny_quant
+    g = torch.Generator(device="cuda").manual_seed(3)
+    caches = [testing.ring_write_inputs(arch, 3, 4, 40, kind, g)
+              for kind in ("int8", "int4")]
+    wants = [[(ring.clone(), blk) for ring, blk in pairs]
+             for pairs, _ in caches]
+    built = rw._plan.cache_info().misses
+    stale = rw.ring_plan([ring for ring, _ in caches[0][0]])
+    before = rw.write_block_columns_group.launches
+    for li in range(arch.decoder_layers):
+        for (pairs, pos), want, plan in zip(caches, wants, (stale, None)):
+            rw.write_block_columns_group(pairs, li, pos, plan)
+            rw.write_block_columns_plain(want, li, pos.cpu())
+    assert rw._plan.cache_info().misses - built == 2
+    assert rw.write_block_columns_group.launches \
+        == before + 2 * arch.decoder_layers
+    for (pairs, _), want in zip(caches, wants):
+        assert _bytes_equal(pairs, want)
+    pairs, _ = caches[0]
+    old = pairs[1][0]
+    kept = old.clone()
+    pairs[1] = (old.clone(), pairs[1][1])
+    wants[0][1] = (pairs[1][0].clone(), pairs[1][1])
+    _fresh_blocks(pairs, g)
+    pos = torch.tensor([30, 0, 17], dtype=torch.int32, device="cuda")
+    for li in range(arch.decoder_layers):
+        rw.write_block_columns_group(pairs, li, pos, stale)
+        rw.write_block_columns_plain(wants[0], li, pos.cpu())
+    assert _bytes_equal(pairs, wants[0])
+    assert torch.equal(old.view(torch.uint8), kept.view(torch.uint8))
+    assert not torch.equal(pairs[1][0].view(torch.uint8),
+                           kept.view(torch.uint8))
+
+
+def test_ring_write_takes_positions_in_any_int_form(gen, tiny_quant):
+    """Positions as device int32 (taken as they are), device int64, host
+    int32 and host int64 (converted): the same bytes."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    arch, _ = tiny_quant
+    g = torch.Generator(device="cuda").manual_seed(4)
+    pairs, pos = testing.ring_write_inputs(arch, 16, 5, 40, "bf16", g)
+    want = [(ring.clone(), blk) for ring, blk in pairs]
+    rw.write_block_columns_plain(want, 1, pos.cpu())
+    before = rw.write_block_columns_group.launches
+    for form in (pos, pos.long(), pos.cpu(), pos.cpu().long()):
+        got = [(ring.clone(), blk) for ring, blk in pairs]
+        rw.write_block_columns_group(got, 1, form)
+        assert _bytes_equal(got, want), form.dtype
+    assert rw.write_block_columns_group.launches == before + 4
+
+
+def test_ring_write_replays_from_a_cuda_graph(gen, tiny_quant):
+    """Every layer's writes captured in one CUDA graph, the positions then
+    changed in place and the graph replayed: the bytes of the plain
+    version at the new positions (the kernel reads them on the device)."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    arch, _ = tiny_quant
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pairs, pos = testing.ring_write_inputs(arch, 4, 3, 40, "int4", g)
+    got = [(ring.clone(), blk) for ring, blk in pairs]
+    rw.write_block_columns_group([(ring.clone(), blk) for ring, blk in pairs],
+                                 0, pos)           # loads the kernel
+    torch.cuda.synchronize()
+    live = pos.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for li in range(arch.decoder_layers):
+            rw.write_block_columns_group(got, li, live)
+    moved = torch.tensor([36, 2, 20, 9], dtype=torch.int32, device="cuda")
+    live.copy_(moved)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = [(ring.clone(), blk) for ring, blk in pairs]
+    for li in range(arch.decoder_layers):
+        rw.write_block_columns_plain(want, li, moved.cpu())
+    assert _bytes_equal(got, want)
+
+
+def test_ring_write_refuses_what_it_does_not_take(gen, tiny_quant):
+    """The wrapper's errors on the card, each with its message: a block
+    that does not fit (or a layer out of range), pairs that differ,
+    positions of the wrong shape, a ring that is not contiguous, a block
+    on the host, too many pairs."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    arch, _ = tiny_quant
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pairs, pos = testing.ring_write_inputs(arch, 3, 2, 40, "int8", g)
+    (k, kb), (v, vb), (ks, ksb), _ = pairs
+    cases = [
+        ([(k, kb[:2])], 0, pos, "does not fit"),
+        ([(k, kb.float())], 0, pos, "does not fit"),
+        ([(k, kb)], arch.decoder_layers, pos, "does not fit"),
+        ([(k, kb), (v, vb[:, :, :1])], 0, pos, "pairs differ"),
+        ([(k, kb), (v[:, :, :, :30], vb)], 0, pos, "pairs differ"),
+        ([(k, kb)], 0, pos[:2], "positions"),
+        ([(k, kb), (torch.zeros(k.shape[:3] + k.shape[:2:-1], dtype=k.dtype,
+                                device="cuda").transpose(3, 4), vb)], 0, pos,
+         "rings must be contiguous"),
+        ([(k, kb.cpu())], 0, pos, "must lie on the rings' device"),
+        ([(k, kb)] * 5, 0, pos, r"5 pairs \(1 to 4\)"),
+        ([(ks, ksb.view(torch.int16))], 0, pos, "does not fit")]
+    before = rw.write_block_columns_group.launches
+    for ring_pairs, li, p, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            rw.write_block_columns_group(ring_pairs, li, p)
+    assert rw.write_block_columns_group.launches == before
+
+
+def test_raw_stream_helper_is_the_current_stream(gen):
+    """``_build.current_stream`` is ``current_stream().cuda_stream``: on
+    the default stream, under ``torch.cuda.stream`` and during graph
+    capture."""
+    from crisperwhisper_tpu_torch import _build
+    dev = torch.cuda.current_device()
+    assert _build.current_stream(dev) \
+        == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert _build.current_stream(dev) == side.cuda_stream \
+            == torch.cuda.current_stream(dev).cuda_stream
+    x = torch.zeros(8, device="cuda")
+    seen = []
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        seen.append((_build.current_stream(dev),
+                     torch.cuda.current_stream(dev).cuda_stream))
+        x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert seen[0][0] == seen[0][1]
+    assert seen[0][0] != torch.cuda.current_stream(dev).cuda_stream
+    assert torch.equal(x, torch.ones(8, device="cuda"))
+
+
 @pytest.mark.parametrize("s,cross,position", [(5, "int4", 30), (8, "int8", 0),
                                               (3, "int4", 93)])
 def test_decode_step_multi_kernel_matches_plain(gen, tiny_quant, s, cross,
@@ -645,6 +801,24 @@ def test_probe_ladder_on_card(gen, capsys):
     out = capsys.readouterr().out
     for rung in ("plain", "probe_add", *_build.SOURCES):
         assert f"PROBE {rung}: OK" in out, out
+
+
+@pytest.mark.parametrize("shape", [(1,), (255,), (257,), (3, 333),
+                                   (8, 128), (5, 1000, 7)])
+def test_probe_add_matches_x_times_two_at_any_size(gen, shape):
+    """The probe kernel at sizes that are not a multiple of its 256-thread
+    block (and at its own (8, 128) tile): x * 2 bit for bit, one launch a
+    call."""
+    from crisperwhisper_tpu_torch import probe
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(shape, generator=g, device="cuda")
+    before = probe.probe_add.launches
+    got = probe.probe_add(x)
+    assert probe.probe_add.launches == before + 1
+    assert got.shape == x.shape and torch.equal(got, x * 2.0)
+    with pytest.raises(ValueError, match="non-empty contiguous float32"):
+        probe.probe_add(x.double())
+    assert probe.probe_add.launches == before + 1
 
 
 def test_build_names_a_source_nvcc_refuses(gen, tmp_path):

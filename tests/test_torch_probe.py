@@ -66,3 +66,50 @@ def test_refused_source_is_named_by_its_rung(tmp_path, monkeypatch, capsys):
     assert probe.main(["dtw.cu"]) == 1
     out = capsys.readouterr().out
     assert "PROBE dtw.cu: FAIL" in out and "nvcc failed on dtw.cu" in out
+
+
+def test_launcher_guards_only_another_device_and_raises_on_errors(
+        monkeypatch):
+    """``_build.launcher``, the path of the probe and ring-write wrappers:
+    the entry gets its arguments and then the current stream's raw handle
+    of the tensors' device; a device guard is entered only when that
+    device is not the current one; an error code raises with the
+    wrapper's name and CUDA's text. A stand-in replaces the card."""
+    import types
+    calls = []
+
+    class Guard:
+        def __init__(self, index):
+            calls.append(("guard", index))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            calls.append(("unguard",))
+
+    def entry(*args):
+        calls.append(args)
+        return args[0]
+
+    monkeypatch.setattr(_build, "_cuda_api",
+                        lambda: (lambda: 0, lambda i: 1000 + i))
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(_build, "kernels", lambda: types.SimpleNamespace(
+        lib=types.SimpleNamespace(
+            cw_probe_add=entry,
+            cw_error_string=lambda err: b"an illegal memory access")))
+    _build.launcher.cache_clear()
+    try:
+        launch = _build.launcher("cw_probe_add")
+        assert _build.launcher("cw_probe_add") is launch
+        launch(0, 0, 11, 12)
+        assert calls == [(0, 11, 12, 1000)]
+        launch(1, 0, 13)
+        assert calls[1:] == [("guard", 1), (0, 13, 1001), ("unguard",)]
+        with pytest.raises(RuntimeError, match=r"probe_add: kernel launch "
+                           r"failed \(700: an illegal memory access\)"):
+            launch(0, 700)
+        assert _build.current_stream(3) == 1003
+    finally:
+        _build.launcher.cache_clear()

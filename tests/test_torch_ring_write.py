@@ -114,6 +114,188 @@ def test_write_checks_shapes():
 
 
 # ---------------------------------------------------------------------------
+# The launch plan of a set of rings (the CUDA path's host side)
+# ---------------------------------------------------------------------------
+
+
+def _per_call_widths(col, *tensors):
+    """The store width that the wrapper computed at every call before it
+    kept a plan: the widest of 16, 8, 4, 2, 1 bytes that divides the
+    column and every base address."""
+    w = 16
+    while w > 1 and (col % w or any(t.data_ptr() % w for t in tensors)):
+        w //= 2
+    return w
+
+
+def _at_offset(shape, dtype, offset):
+    """A contiguous tensor of ``shape`` whose data starts ``offset``
+    elements into its storage (0: the allocator's own alignment)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+def _rings(kind, layers, rows, heads, t, dh, offset=0):
+    """The rings of one self cache as models/whisper.init_cache lays them
+    out: K and V [L, B, H, T, Dh] (packed int4: Dh/2 bytes), and for
+    int8 and int4 their bf16 scale rings [L, B, H, T]."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32,
+             "int8": torch.int8, "int4": torch.uint8}[kind]
+    tail = dh // 2 if kind == "int4" else dh
+    rings = [_at_offset((layers, rows, heads, t, tail), dtype, offset)
+             for _ in range(2)]
+    if kind in ("int8", "int4"):
+        rings += [_at_offset((layers, rows, heads, t), torch.bfloat16,
+                             offset) for _ in range(2)]
+    return rings
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("heads,dh", [(4, 16), (20, 64)],
+                         ids=["tiny", "large-v3"])
+@pytest.mark.parametrize("kind", ["bf16", "f32", "int8", "int4"])
+def test_plan_holds_the_per_call_bytes_and_widths(kind, heads, dh, offset):
+    """At TINY and large-v3 widths, a plan's column bytes and store widths
+    are what the wrapper computed at every call before (a column's bytes
+    from ``ring[0, 0, 0, 0]``, the widest store dividing it and the
+    addresses), also for rings one element off the allocator's alignment;
+    its packed struct holds the rings' addresses and geometry."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    rings = _rings(kind, 3, 2, heads, 11, dh, offset)
+    plan = rw.ring_plan(rings)
+    cols = [r[0, 0, 0, 0].numel() * r.element_size() for r in rings]
+    assert list(plan.cols) == cols
+    assert list(plan.widths) == [_per_call_widths(c, r)
+                                 for c, r in zip(cols, rings)]
+    if offset == 0:             # the allocator aligns to at least 16 bytes
+        assert plan.widths == tuple(min(16, c) for c in cols)
+    blks = [torch.zeros((2, heads, 5) + tuple(r.shape[4:]), dtype=r.dtype)
+            for r in rings]
+    _, _, widths = plan.call(blks, 0, torch.zeros(2, dtype=torch.int32))
+    assert widths == sum(
+        _per_call_widths(c, r, b) << (8 * j)
+        for j, (c, r, b) in enumerate(zip(cols, rings, blks))) + sum(
+        1 << (8 * j) for j in range(len(rings), rw.MAX_PAIRS))
+    st = plan.struct
+    assert list(st.ring)[:len(rings)] == [r.data_ptr() for r in rings]
+    assert list(st.ring)[len(rings):] == [None] * (4 - len(rings))
+    assert list(st.col) == cols + [0] * (4 - len(rings))
+    assert (st.n_pairs, st.layers, st.rows, st.heads, st.t_ring) == (
+        len(rings), 3, 2, heads, 11)
+
+
+def test_plan_is_kept_per_key_and_a_replaced_ring_gets_its_own():
+    """The same rings get the same plan object; a ring replaced by a clone
+    gets a new plan with the clone's address, and the old set's plan is
+    still the cached one. The cache keeps at most MAX_PLANS keys."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    rings = _rings("int8", 2, 3, 4, 9, 16)
+    plan = rw.ring_plan(rings)
+    assert rw.ring_plan(list(rings)) is plan
+    clone = rings[1].clone()
+    other = rw.ring_plan([rings[0], clone, *rings[2:]])
+    assert other is not plan
+    assert other.struct.ring[1] == clone.data_ptr() != plan.struct.ring[1]
+    assert other.struct.ring[0] == plan.struct.ring[0]
+    assert rw.ring_plan(rings) is plan
+    for _ in range(rw.MAX_PLANS + 2):
+        rw.ring_plan(_rings("bf16", 1, 1, 2, 4, 8))
+    assert rw._plan.cache_info().currsize <= rw.MAX_PLANS
+
+
+def test_misaligned_block_lowers_the_width_for_that_call_only():
+    """A block viewed one element off a 16-byte boundary lowers its own
+    pair's store width for the call that passes it; the plan, and the
+    next call with aligned blocks, keep the widest."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    rings = _rings("int8", 2, 3, 4, 9, 16)
+    plan = rw.ring_plan(rings)
+    assert plan.widths == (16, 16, 2, 2)
+    aligned = [torch.zeros((3, 4, 2) + tuple(r.shape[4:]), dtype=r.dtype)
+               for r in rings]
+    skew = list(aligned)
+    skew[1] = _at_offset(aligned[1].shape, torch.int8, 1)
+    skew[2] = _at_offset(aligned[2].shape, torch.bfloat16, 1)
+    assert skew[1].data_ptr() % 2 == 1 and skew[2].data_ptr() % 4 == 2
+    pos = torch.zeros(3, dtype=torch.int32)
+    _, _, widths = plan.call(skew, 0, pos)
+    assert [(widths >> (8 * j)) & 0xFF for j in range(4)] == [16, 1, 2, 2]
+    assert plan.widths == (16, 16, 2, 2)
+    assert plan.call(aligned, 0, pos)[2] == plan.width_code \
+        == 16 | 16 << 8 | 2 << 16 | 2 << 24
+
+
+def test_call_checks_only_blocks_layers_and_positions_against_the_plan():
+    """What a call checks against its plan (``RingPlan.call``): each
+    block's shape, dtype and device, the layer, and the positions' shape;
+    the blocks' addresses and S when all fit."""
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    rings = _rings("int4", 2, 3, 4, 9, 16)
+    plan = rw.ring_plan(rings)
+    blks = [torch.zeros((3, 4, 2) + tuple(r.shape[4:]), dtype=r.dtype)
+            for r in rings]
+    pos = torch.zeros(3, dtype=torch.int32)
+    want = [b.data_ptr() for b in blks]
+    assert plan.call(blks, 1, pos)[:2] == (want, 2)
+    assert plan.call(blks, 1, pos.long())[:2] == (want, 2)   # converted
+    assert plan.call(blks, 2, pos) is None
+    assert plan.call(blks, -1, pos) is None
+    assert plan.call(blks, 0, pos[:2]) is None
+    for j, bad in ((0, blks[0][:, :, :1]), (1, blks[1].to(torch.int8)),
+                   (2, blks[2][:2]), (3, blks[3][..., None])):
+        assert plan.call(blks[:j] + [bad] + blks[j + 1:], 0, pos) is None, j
+
+
+def test_plan_refuses_rings_the_kernel_does_not_take():
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    rings = _rings("bf16", 2, 3, 4, 9, 16)
+    with pytest.raises(ValueError, match="rings must be contiguous"):
+        rw.ring_plan([rings[0], torch.zeros((2, 3, 4, 9, 32),
+                                            dtype=torch.bfloat16)[..., ::2]])
+    with pytest.raises(ValueError, match="pairs differ"):
+        rw.ring_plan([rings[0], rings[1][:, :2]])
+    with pytest.raises(ValueError, match=r"5 pairs \(1 to 4\)"):
+        rw.ring_plan(rings * 2 + rings[:1])
+
+
+def test_plan_struct_matches_the_kernel_source():
+    """``PlanStruct`` mirrors csrc/ring_write.cu's ``RingPlan`` field for
+    field (name, C type, array length), since nothing here compiles the
+    source; and the entry takes the plan, four blocks, the positions, S,
+    the layer, the widths and the stream."""
+    import ctypes
+    import re
+    from pathlib import Path
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    src = (Path(rw.__file__).parents[1] / "csrc" / "ring_write.cu"
+           ).read_text()
+    consts = {n: int(v) for n, v in re.findall(
+        r"^constexpr int (k\w+) = (\d+);", src, re.M)}
+    assert consts["kMaxPairs"] == rw.MAX_PAIRS
+    body = re.search(r"^struct RingPlan \{(.*?)^\};", src, re.M | re.S)[1]
+    c_types = {"char*": ctypes.c_void_p, "int": ctypes.c_int}
+    fields = []
+    for ctype, name, n in re.findall(
+            r"^\s*(char\*|int)\s+(\w+)(?:\[(\w+)\])?;", body, re.M):
+        t = c_types[ctype]
+        fields.append((name, t * consts[n] if n else t))
+    assert len(fields) == len(re.findall(r";", body))
+    got = [(name, t) for name, t in rw.PlanStruct._fields_]
+    assert [n for n, _ in got] == [n for n, _ in fields]
+    for (_, want), (_, have) in zip(fields, got):
+        assert getattr(have, "_type_", have) is getattr(want, "_type_",
+                                                        want)
+        assert getattr(have, "_length_", 1) == getattr(want, "_length_", 1)
+    entry = re.search(r'extern "C" int cw_ring_write\((.*?)\)', src,
+                      re.S)[1]
+    params = [" ".join(a.split()) for a in entry.split(",")]
+    assert params == ["const RingPlan* plan", "const void* blk0",
+                      "const void* blk1", "const void* blk2",
+                      "const void* blk3", "const void* pos", "int s",
+                      "int layer", "int widths", "void* stream"]
+
+
+# ---------------------------------------------------------------------------
 # The decoder step at per-row positions
 # ---------------------------------------------------------------------------
 
