@@ -8,12 +8,18 @@ Phases, one line each on stdout:
   1. build the CUDA kernels from crisperwhisper_tpu_torch/csrc (one nvcc
      per source, in parallel; ptxas registers, spills and shared memory of
      both encoder-attention kernels, of the decode-step kernel and of the
-     log-mel, decode-attention and probe kernels) and import the Triton
-     module (Triton compiles at the first launch, in phase 2);
+     log-mel, decode-attention and probe kernels; registers and spills
+     over the instantiations of the align-prep and DTW kernels);
   2. each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the maximum error and both times (the
      comparisons and bands of crisperwhisper_tpu_torch.testing, which
-     tests/test_torch_gpu.py runs too); the encoder attention at bf16 and
+     tests/test_torch_gpu.py runs too); the alignment prep at [4, 15, 96,
+     1500] and at the CLI's batch of 16 windows, one launch a call; the
+     DTW, exact, at [4, 96, 1500] (also on the unmasked prep output, which
+     must give the same path), [16, 96, 1500] and [4, 381, 1500] (the
+     CLI's max_new_tokens), one launch a call, each with its walk and
+     backtrace (globaltimer stamps) and its chain bound at the card's
+     maximum SM clock; the encoder attention at bf16 and
      f16 [4, 20, 1500, 64] and bf16 [16, 20, 1500, 64] (the CLI's batch
      of 16 windows) on the tensor-core route and at f32 on the CUDA-core
      route, each row with its route, error, times, bound and the time of
@@ -48,7 +54,8 @@ Phases, one line each on stdout:
      its bound (the bytes it must move over 3.35 TB/s, or its operations
      over the peak rate of their type, whichever is larger; for the
      log-mel the operations of an FFT, and its own design's DFT product
-     beside them) and the time
+     beside them; for the DTW also its chain of dependent anti-diagonals)
+     and the time
      of the one PyTorch call that computes the same function, where there
      is one;
   3. the TINY f32 slice on the card against the same slice on the CPU
@@ -66,7 +73,10 @@ Phases, one line each on stdout:
      card: load_pipeline answers a 60 s WAV file and a 12 s array with
      word timestamps and adjust_pauses=0.12; every kernel's launch count
      is reset just before and read just after, and must be > 0; every
-     encoder-attention launch must have taken the tensor-core route;
+     encoder-attention launch must have taken the tensor-core route; the
+     alignment tail (attention_to_jump_times: align prep + DTW) of each
+     request is timed between CUDA events, with its calls and its share
+     of the wall;
   5. the same weights through load_pipeline(quantize="serving") with
      b1_decode_kernel: the 12 s array (batch 1, decode_step_b1) and the
      60 s WAV (3 windows, decode_step_rows), counts reset before each
@@ -191,6 +201,24 @@ def _bound(n_bytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _sm_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz (nvidia-smi clocks.max.sm)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    _require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.strip().splitlines()[0])
+
+
+def _dtw_chain_ms(n_tokens, n_frames, clock_mhz: float) -> float:
+    """The DTW's chain bound: its longest item walks nt + nf - 1 dependent
+    anti-diagonals, each at least one f32 min and one f32 add of 4 cycles
+    each at the SM clock (the backtrace's steps left out: a design could
+    hold them in registers)."""
+    diagonals = int((n_tokens.long() + n_frames.long()).max()) - 1
+    return max(diagonals, 0) * 2 * 4 / (clock_mhz * 1e3)
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -264,7 +292,6 @@ def phase0_device() -> str:
 
 def phase1_build() -> None:
     from crisperwhisper_tpu_torch import _build
-    from crisperwhisper_tpu_torch.ops import _align_prep_triton  # noqa: F401
     kern = _build.kernels()
     regs = [ln.strip() for ln in kern.ptxas_log.splitlines()
             if "registers" in ln]
@@ -277,6 +304,9 @@ def phase1_build() -> None:
         + "; tensor-core CTA dynamic shared memory (Dh 16/32/64): "
         + "/".join(str(kern.lib.cw_encoder_attention_tc_smem(d))
                    for d in (16, 32, 64)) + " bytes", flush=True)
+    print("phase 1 align_prep.cu, dtw.cu: " + "; ".join(
+        _ptxas_range(kern.ptxas_log, name)
+        for name in ("align_prep_kernel", "dtw_kernel")), flush=True)
     print("phase 1 decode_step.cu: " + "; ".join(
         _ptxas_summary(kern.ptxas_log, "decode_step_kernel")), flush=True)
     print("phase 1 log_mel.cu, decode_attention.cu, probe.cu: " + "; ".join(
@@ -300,6 +330,21 @@ def _ptxas_summary(log: str, kernel: str) -> list[str]:
             out.append(f"{name}: {regs}, {spill}")
             name = None
     return out
+
+
+def _ptxas_range(log: str, kernel: str) -> str:
+    """'<kernel>: E entries, R0-R1 registers, S bytes spill stores, L bytes
+    spill loads' over every compiled instantiation of ``kernel``."""
+    import re
+    regs, spills = [], [0, 0]
+    for line in _ptxas_summary(log, kernel):
+        regs.append(int(re.search(r"(\d+) registers", line).group(1)))
+        for i, what in enumerate(("spill stores", "spill loads")):
+            found = re.search(rf"(\d+) bytes {what}", line)
+            spills[i] += int(found.group(1)) if found else 0
+    return (f"{kernel}: {len(regs)} entries, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, {spills[0]} bytes spill "
+            f"stores, {spills[1]} bytes spill loads")
 
 
 def _print_phases(mode: str, ms: float, shares: dict) -> None:
@@ -370,53 +415,97 @@ def phase2_kernels(large) -> list[dict]:
                 "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     print("phase 2 attention: " + "; ".join(rows), flush=True)
 
-    # --- kernel 2: alignment prep, one row cropped to 1000 frames
+    # --- kernel 2: alignment prep, one row cropped to 1000 frames; then
+    # the CLI's batch of 16 windows (a generator of its own, so the shared
+    # one's stream stays as it was)
     b, a, t, m = 4, 15, 96, 1500
     w = torch.softmax(torch.randn((b, a, t, m), generator=gen, device=dev)
                       * 3.0, dim=-1).contiguous()
     nt = torch.tensor([96, 80, 51, 96], dtype=torch.int32, device=dev)
     nf = torch.tensor([1500, 1500, 1500, 1000], dtype=torch.int32,
                       device=dev)
-    err, got = testing.align_prep_error(w, nt, nf)
-    ms = _time_ms(lambda: ap.align_prep(w, nt, nf, 7), 10)
-    plain_ms = _time_ms(lambda: ap.align_prep_plain(w, nt, nf, 7), 3)
-    _require(err <= testing.PREP_BAND,
-             f"align_prep: max err {err} > {testing.PREP_BAND}")
-    # z-norm, a 7-tap median (a sorting network) and the head mean: about
-    # 20 f32 operations per input value
-    bound, by = _bound(_nbytes(w, nt, nf, got), 20 * w.numel(), "f32")
-    print(f"phase 2 align_prep: {[b, a, t, m]} err {err:.3g} (band "
-          f"{testing.PREP_BAND}) {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-          f"bound {bound:.4f} ms ({by}), no single library call",
-          flush=True)
-    entries.append({
-        "name": "align_prep", "route": "triton",
-        "source": "crisperwhisper_tpu_torch/ops/_align_prep_triton.py",
-        "replaces": "crisperwhisper_tpu/ops/pallas_align.py:44",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None})
+    own = torch.Generator(device=dev).manual_seed(2)
+    w16 = torch.softmax(torch.randn((16, a, t, m), generator=own, device=dev)
+                        * 3.0, dim=-1).contiguous()
+    nt16, nf16 = nt.repeat(4), nf.repeat(4)
+    rows = []
+    for ww, nn, ff in ((w, nt, nf), (w16, nt16, nf16)):
+        err, got = testing.align_prep_error(ww, nn, ff)
+        before = ap.align_prep.launches
+        ms = _time_ms(lambda: ap.align_prep(ww, nn, ff, 7), 20)
+        _require(ap.align_prep.launches == before + 21,
+                 "align_prep: not one launch a call")
+        plain_ms = _time_ms(lambda: ap.align_prep_plain(ww, nn, ff, 7), 3)
+        _require(err <= testing.PREP_BAND,
+                 f"align_prep {list(ww.shape)}: max err {err} > "
+                 f"{testing.PREP_BAND}")
+        # the live input cells read once, the output written once; z-norm,
+        # a 7-tap median (a sorting network) and the head mean: about 20 f32
+        # operations per live input value
+        live = a * int((nn.long() * ff.long()).sum())
+        bound, by = _bound(4 * live + _nbytes(nn, ff, got), 20 * live, "f32")
+        rows.append(f"{list(ww.shape)} err {err:.3g} (band "
+                    f"{testing.PREP_BAND}) {ms:.4f} ms vs plain "
+                    f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+        if ww is w:
+            prep, entry = got, {
+                "name": "align_prep", "route": "cuda",
+                "source": "crisperwhisper_tpu_torch/csrc/align_prep.cu",
+                "replaces": "crisperwhisper_tpu/ops/pallas_align.py:44",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
+    entries.append(entry)
+    print("phase 2 align_prep: " + "; ".join(rows)
+          + "; no single library call", flush=True)
 
-    # --- kernel 3: DTW, exact, on the masked cost of that prep
-    cost = torch.where(testing.live_cells(nt, nf, t, m), got,
-                       torch.tensor(1e9, device=dev)).contiguous()
-    err = testing.dtw_error(cost, nt, nf)
-    ms = _time_ms(lambda: dt.dtw(cost, nt, nf), 10)
-    plain_ms = _time_ms(lambda: al.dtw_jump_times(cost, nt, nf), 2)
-    _require(err == 0, f"dtw: off by up to {err} frames")
-    # the live cells of this run's rows, read once; the DP does about four
-    # f32 operations a cell; the path out is one int32 a token
-    cells = int((nt.long() * nf.long()).sum())
-    bound, by = _bound(4 * cells + _nbytes(nt, nf) + 4 * b * t, 4 * cells,
-                       "f32")
-    print(f"phase 2 dtw: {[b, t, m]} exact (max diff {err} frames) "
-          f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-          f"({by}), no single library call", flush=True)
-    entries.append({
-        "name": "dtw", "route": "cuda",
-        "source": "crisperwhisper_tpu_torch/csrc/dtw.cu",
-        "replaces": "crisperwhisper_tpu/ops/pallas_dtw.py:59",
-        "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None})
+    # --- kernel 3: DTW, exact, on the masked cost of that prep (and equal
+    # on the unmasked prep: it reads only the live rectangle); then at the
+    # CLI's batch of 16 and at N = 381 (the CLI's max_new_tokens)
+    clock = _sm_clock_mhz()
+    big = torch.tensor(1e9, device=dev)
+    cost = torch.where(testing.live_cells(nt, nf, t, m), prep, big
+                       ).contiguous()
+    _require(bool((dt.dtw(prep, nt, nf) == dt.dtw(cost, nt, nf)).all()),
+             "dtw: the unmasked cost gives another path")
+    w381 = torch.softmax(torch.randn((4, a, 381, m), generator=own,
+                                     device=dev) * 3.0, dim=-1).contiguous()
+    nt381 = torch.tensor([381, 300, 200, 381], dtype=torch.int32, device=dev)
+    rows = []
+    for pw, nn, ff in ((prep, nt, nf),
+                       (ap.align_prep(w16, nt16, nf16, 7), nt16, nf16),
+                       (ap.align_prep(w381, nt381, nf, 7), nt381, nf)):
+        cb, cn, cm = pw.shape
+        c = torch.where(testing.live_cells(nn, ff, cn, cm), pw, big
+                        ).contiguous()
+        err = testing.dtw_error(c, nn, ff)
+        before = dt.dtw.launches
+        ms = _time_ms(lambda: dt.dtw(c, nn, ff), 20)
+        _require(dt.dtw.launches == before + 21, "dtw: not one launch a call")
+        plain_ms = _time_ms(lambda: al.dtw_jump_times(c, nn, ff), 1)
+        _require(err == 0, f"dtw {[cb, cn, cm]}: off by up to {err} frames")
+        total, walk, back = testing.dtw_phases(c, nn, ff)
+        # the live cells of this run's rows, read once; the DP does about
+        # four f32 operations a cell; the path out is one int32 a token
+        cells = int((nn.long() * ff.long()).sum())
+        bound, by = _bound(4 * cells + _nbytes(nn, ff) + 4 * cb * cn,
+                           4 * cells, "f32")
+        chain = _dtw_chain_ms(nn, ff, clock)
+        if chain > bound:
+            bound, by = chain, "chain"
+        rows.append(f"{[cb, cn, cm]} exact (max diff {err} frames) {ms:.4f} "
+                    f"ms vs plain {plain_ms:.3f} ms, bound {bound:.5f} ms "
+                    f"({by}; chain {chain:.5f} ms at {clock:.0f} MHz); "
+                    f"stamps {total:.4f} ms, walk {walk:.4f} ms, backtrace "
+                    f"{back:.4f} ms")
+        if pw is prep:
+            entries.append({
+                "name": "dtw", "route": "cuda",
+                "source": "crisperwhisper_tpu_torch/csrc/dtw.cu",
+                "replaces": "crisperwhisper_tpu/ops/pallas_dtw.py:59",
+                "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None})
+    print("phase 2 dtw: " + "; ".join(rows) + "; no single library call",
+          flush=True)
 
     # --- kernel 4: the whole-step decoder at large-v3 width
     from crisperwhisper_tpu_torch.models.whisper import (alignment_selector,
@@ -955,16 +1044,39 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
                             force_unique_generate_call=True)
     requests = _large_requests(tmp)
 
+    # the alignment tail (align prep + DTW) of each decode pass, between
+    # CUDA events on the stream
+    from crisperwhisper_tpu_torch.decoding import longform
+    real_tail = longform.attention_to_jump_times
+    marks = []
+
+    def timed_tail(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return real_tail(*args, **kwargs)
+        finally:
+            stop.record()
+            marks.append((start, stop))
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    results, walls = [], []
-    for req, _ in requests:
-        t0 = time.perf_counter()
-        results.append(pipe(req, return_timestamps="word",
-                            adjust_pauses_threshold=0.12))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    results, walls, tails = [], [], []
+    longform.attention_to_jump_times = timed_tail
+    try:
+        for req, _ in requests:
+            marks.clear()
+            t0 = time.perf_counter()
+            results.append(pipe(req, return_timestamps="word",
+                                adjust_pauses_threshold=0.12))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            tails.append((sum(a.elapsed_time(b) for a, b in marks) / 1e3,
+                          len(marks)))
+    finally:
+        longform.attention_to_jump_times = real_tail
     counts = _counts()
     launches = {k: n for k, n in counts.items()
                 if k in ("encoder_attention", "align_prep", "dtw")}
@@ -999,7 +1111,11 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
           f"({len(results[1]['chunks'])} words); peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}, encoder "
           f"attention all {counts['encoder_attention_tensor_cores']} on "
-          "the tensor-core route", flush=True)
+          "the tensor-core route; alignment tail (CUDA events around "
+          "attention_to_jump_times) " + ", ".join(
+              f"{label} {sec:.4f} s over {calls} calls ({100 * sec / wall:.3f}"
+              "% of the wall)" for label, (sec, calls), wall in zip(
+                  ("60 s file", "12 s array"), tails, walls)), flush=True)
     return launches
 
 

@@ -27,12 +27,11 @@ through ``csrc/launch.cuh``); ``check`` raises on anything but 0, because a
 refused launch never runs and a later ``torch.cuda.synchronize()`` would
 not report it.
 
-``launcher`` is the lean path from a wrapper to its C entry, for kernels
-that take less time on the card than a wrapper's usual host work (the
-ring writes and the probe): the raw handle of PyTorch's current stream
-(``current_stream``, no Python Stream object), a device guard only when
-the tensors' device is not the current one, one ctypes call, and
-``check``.
+``launcher`` is the lean path from a wrapper to its C entry (the
+alignment prep, the DTW, the ring writes and the probe): the raw handle
+of PyTorch's current stream (``current_stream``, no Python Stream
+object), a device guard only when the tensors' device is not the current
+one, one ctypes call, and ``check``.
 """
 
 from __future__ import annotations
@@ -53,8 +52,9 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("encoder_attention.cu", "dtw.cu", "decode_step.cu",
-           "ring_write.cu", "log_mel.cu", "decode_attention.cu", "probe.cu")
+SOURCES = ("encoder_attention.cu", "align_prep.cu", "dtw.cu",
+           "decode_step.cu", "ring_write.cu", "log_mel.cu",
+           "decode_attention.cu", "probe.cu")
 HEADERS = ("launch.cuh",)       # included by sources; part of the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -87,17 +87,29 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def compile_object(source: Path, obj: Path) -> str:
-    """Compile one CUDA source to an object file with ``nvcc`` and return
-    its log (ptxas registers and spills). Raises a RuntimeError that names
-    the source when nvcc refuses it."""
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                           str(source)], stdout=subprocess.PIPE,
+def compile_object(source: Path, obj: Path, *flags: str) -> str:
+    """Compile one CUDA source to an object file with ``nvcc`` (``flags``
+    after the usual ones, e.g. a test build's ``-D``) and return its log
+    (ptxas registers and spills). Raises a RuntimeError that names the
+    source when nvcc refuses it."""
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o",
+                           str(obj), str(source)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} (exit code "
                            f"{proc.returncode}):\n{proc.stdout}")
     return proc.stdout
+
+
+def link(objs: list[Path], out: Path) -> None:
+    """Link object files into the shared library ``out`` with ``nvcc``."""
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                           str(out), *map(str, objs)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link (exit code "
+                           f"{proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
 
 
 def _build() -> tuple[Path, float, str]:
@@ -111,20 +123,13 @@ def _build() -> tuple[Path, float, str]:
     tag = f"{so.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(n).stem}.o" for n in SOURCES]
     tmp = so.with_name(f"{tag}.so.tmp")
-    nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
         # each thread waits on its own nvcc process, so they run together
         with ThreadPoolExecutor(len(SOURCES)) as pool:
             logs = list(pool.map(compile_object,
                                  [CSRC / n for n in SOURCES], objs))
-        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
-                               str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc failed to link (exit code "
-                               f"{link.returncode}):\n{link.stdout}"
-                               f"{link.stderr}")
+        link(objs, tmp)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
@@ -143,7 +148,9 @@ def kernels() -> Kernels:
         entry.restype = i32
     lib.cw_encoder_attention_tc_smem.argtypes = [i32]
     lib.cw_encoder_attention_tc_smem.restype = i32
-    lib.cw_dtw.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.cw_align_prep.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.cw_align_prep.restype = i32
+    lib.cw_dtw.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.cw_dtw.restype = i32
     lib.cw_decode_step.argtypes = [ptr] * 14 + [i32] * 14 + [
         ctypes.c_float, ptr, ptr]

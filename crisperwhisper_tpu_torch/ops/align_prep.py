@@ -1,4 +1,4 @@
-"""Alignment prep: the hand-written Triton kernel and its plain twin.
+"""Alignment prep: the hand-written CUDA kernel and its plain twin.
 
 Port of crisperwhisper_tpu/ops/pallas_align.py (fused_align_prep):
 [B, A, T, K] alignment-head probabilities -> [B, T, K] f32 DTW cost =
@@ -8,16 +8,51 @@ token-axis z-norm.
 Unlike the TPU kernel, this one takes a per-row ``n_frames``: frames >=
 n_frames are zeroed before the statistics and the median reflects at
 n_frames - 1 (ops/alignment.py does the same), so full and cropped rows
-share one call. ``align_prep`` launches the Triton kernel
-(ops/_align_prep_triton.py, imported only when it launches) for CUDA
-tensors and runs ``align_prep_plain`` only for CPU tensors.
+share one call. ``align_prep`` launches ``csrc/align_prep.cu`` (one
+launch a call) for CUDA tensors and runs ``align_prep_plain`` only for CPU
+tensors. The two agree within ``testing.PREP_BAND`` on the live cells
+(token < n_tokens, frame < n_frames), the only cells the DTW reads; the
+kernel writes 0 everywhere else.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _build
 from .alignment import median_filter, znorm_tokens
+
+# mirrors of csrc/align_prep.cu's constants (a CPU test parses the source)
+TILE = 32                # output frames a block
+THREADS = 1024           # 32 warps a block
+ROWS_PER_THREAD = 16     # token rows a thread at most
+MAX_TOKENS = THREADS // 32 * ROWS_PER_THREAD   # 512
+SMEM_LIMIT = 232448      # the H100's 227 KB of shared memory a block
+
+
+def smem_bytes(t: int, width: int) -> int:
+    """Dynamic shared memory of one block (csrc/align_prep.cu
+    ``prep_smem``): two strips of T rows."""
+    sw = (TILE + 2 * (width // 2) + 6 + 3) // 4 * 4
+    return 2 * t * sw * 4
+
+
+def plan(t: int, k: int, width: int) -> int:
+    """Dynamic shared memory of one block for T token rows, K frames and
+    an odd median ``width``; raises a ValueError for a shape the kernel
+    does not take."""
+    if width <= 0 or width % 2 != 1:
+        raise ValueError("`width` should be an odd positive number")
+    if min(t, k) <= 0 or k <= width // 2 or t > MAX_TOKENS:
+        raise ValueError(f"align_prep: unsupported shape: {t} token rows "
+                         f"(at most {MAX_TOKENS}), {k} frames, width "
+                         f"{width}")
+    need = smem_bytes(t, width)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"align_prep: {t} token rows at width {width} need "
+                         f"{need} bytes of shared memory, over the limit of "
+                         f"{SMEM_LIMIT}")
+    return need
 
 
 def align_prep_plain(weights: torch.Tensor, n_tokens: torch.Tensor,
@@ -55,19 +90,14 @@ def align_prep(weights: torch.Tensor, n_tokens: torch.Tensor,
                 or x.shape != (b,) or not x.is_contiguous():
             raise ValueError(f"align_prep: {name} must be a contiguous int32 "
                              f"[{b}] tensor on {weights.device}")
-    if width <= 0 or width % 2 != 1:
-        raise ValueError("`width` should be an odd positive number")
-    if min(b, a, t, k) == 0 or k <= width // 2:
+    if min(b, a) == 0:
         raise ValueError(f"align_prep: unsupported shape "
                          f"{tuple(weights.shape)}")
-    from . import _align_prep_triton
-
+    plan(t, k, width)
     out = torch.empty((b, t, k), dtype=torch.float32, device=weights.device)
-    mean = torch.empty((b, a, k), dtype=torch.float32, device=weights.device)
-    den = torch.empty_like(mean)
-    with torch.cuda.device(weights.device):
-        _align_prep_triton.launch(weights, n_tokens, n_frames, mean, den, out,
-                                  width)
+    _build.launcher("cw_align_prep")(
+        weights.get_device(), weights.data_ptr(), n_tokens.data_ptr(),
+        n_frames.data_ptr(), out.data_ptr(), b, a, t, k, width)
     align_prep.launches += 1
     return out
 

@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import torch
 
-_BIG = 1e9          # cost of masked rows/columns (kept off the DTW path)
-
 
 def median_filter(x: torch.Tensor, width: int,
                   length: torch.Tensor | int | None = None) -> torch.Tensor:
@@ -73,11 +71,13 @@ def dtw_jump_times(matrix: torch.Tensor, n_tokens: torch.Tensor,
                    n_frames: torch.Tensor) -> torch.Tensor:
     """Batched DTW + backtrace -> first-arrival frame per token row.
 
-    matrix: [B, N, M] f32 cost (negated attention), rows >= n_tokens and
-    columns >= n_frames masked by the caller to a large cost. n_tokens,
-    n_frames: [B] integer tensors. Returns int32 [B, N]; rows >= n_tokens
-    hold the last valid value. The DP walks the anti-diagonals with the
-    whole batch and every row at once; each cell is one f32 add."""
+    matrix: [B, N, M] f32 cost (negated attention). n_tokens, n_frames:
+    [B] integer tensors. Returns int32 [B, N]; rows >= n_tokens hold the
+    last valid value. What lies outside the live rectangle [0, n_tokens] x
+    [0, n_frames] never reaches the result: every cell inside depends only
+    on cells above and to its left, and the backtrace starts at (n_tokens,
+    n_frames). The DP walks the anti-diagonals with the whole batch and
+    every row at once; each cell is one f32 add."""
     b, n, m = matrix.shape
     dev = matrix.device
     mat = matrix.float()
@@ -133,17 +133,12 @@ def attention_to_jump_times(weights: torch.Tensor, median_width: int,
 
     n_tokens: [B] generated-token counts; n_frames: [B] true encoder frames
     (num_frames // 2, cropped rows included). Every row, full or cropped,
-    takes one align-prep call and one DTW call."""
+    takes one align-prep call and one DTW call; the DTW reads only the
+    live cells of the prep's output, so nothing is masked between them."""
     from .align_prep import align_prep
     from .dtw import dtw
 
-    b, _, t, m = weights.shape
     n_tokens = n_tokens.to(device=weights.device, dtype=torch.int32)
     n_frames = n_frames.to(device=weights.device, dtype=torch.int32)
-    mats = align_prep(weights, n_tokens, n_frames, median_width)
-    keep = ((torch.arange(t, device=weights.device)[None, :, None]
-             < n_tokens[:, None, None])
-            & (torch.arange(m, device=weights.device)[None, None, :]
-               < n_frames[:, None, None]))
-    mats = torch.where(keep, mats, torch.tensor(_BIG, device=mats.device))
-    return dtw(mats.contiguous(), n_tokens, n_frames)
+    return dtw(align_prep(weights, n_tokens, n_frames, median_width),
+               n_tokens, n_frames)

@@ -285,8 +285,9 @@ def align_prep_error(w: torch.Tensor, n_tokens: torch.Tensor,
                      n_frames: torch.Tensor, width: int = 7
                      ) -> tuple[float, torch.Tensor]:
     """(max |align_prep − align_prep_plain| over the live cells, the
-    kernel's output). Cells past n_tokens or n_frames are masked out of
-    the DTW cost, so only live cells are compared; band ``PREP_BAND``."""
+    kernel's output). The DTW reads no cell past n_tokens or n_frames (the
+    kernel writes 0 there), so only live cells are compared; band
+    ``PREP_BAND``."""
     from .ops.align_prep import align_prep, align_prep_plain
     got = align_prep(w, n_tokens, n_frames, width)
     live = live_cells(n_tokens, n_frames, w.shape[2], w.shape[3])
@@ -304,6 +305,23 @@ def dtw_error(cost: torch.Tensor, n_tokens: torch.Tensor,
     got = dtw(cost, n_tokens, n_frames)
     return int((got - dtw_jump_times(cost, n_tokens, n_frames)).abs().max()
                .item())
+
+
+def dtw_phases(cost: torch.Tensor, n_tokens: torch.Tensor,
+               n_frames: torch.Tensor) -> tuple[float, float, float]:
+    """One launch of the DTW kernel with its stamps on: (milliseconds from
+    the first block's start to the last block's end, the walk's and the
+    backtrace's milliseconds in the block that ended last) on the device's
+    %globaltimer. Needs the card."""
+    from .ops.dtw import dtw
+    stamps = torch.zeros((cost.shape[0], 3), dtype=torch.int64,
+                         device=cost.device)
+    dtw(cost, n_tokens, n_frames, stamps=stamps)
+    t = stamps.cpu().double()
+    last = int(t[:, 2].argmax())
+    return (float(t[:, 2].max() - t[:, 0].min()) / 1e6,
+            float(t[last, 1] - t[last, 0]) / 1e6,
+            float(t[last, 2] - t[last, 1]) / 1e6)
 
 
 def mel_errors(waveform: torch.Tensor, cfg) -> tuple[dict, torch.Tensor]:

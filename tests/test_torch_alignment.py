@@ -203,3 +203,140 @@ def test_tiny_pipeline_median_width_5_matches_jax(tmp_path):
         np.testing.assert_array_equal(g["tokens"], r["tokens"])
         np.testing.assert_allclose(g["token_timestamps"],
                                    r["token_timestamps"], atol=TS_BAND)
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_dtw_ignores_cells_outside_the_live_rectangle(kind):
+    """The DTW reads no cell outside [0, n_tokens] x [0, n_frames]: the
+    port's plain DTW on a matrix with fresh random values there equals,
+    exactly, the JAX scan and the JAX kernel (interpreted) on the same
+    matrix masked with 1e9. Integer costs in {0, 1, 2} put ties on the
+    tie-break."""
+    from crisperwhisper_tpu.ops.alignment import dtw_jump_times as jdtw
+    from crisperwhisper_tpu.ops.pallas_dtw import pallas_dtw_jump_times
+    from crisperwhisper_tpu_torch.ops.alignment import dtw_jump_times
+    rng = np.random.default_rng(11 if kind == "normal" else 12)
+    b, n, m = 4, 21, 60
+
+    def draw():
+        if kind == "normal":
+            return rng.standard_normal((b, n, m)).astype(np.float32)
+        return rng.integers(0, 3, (b, n, m)).astype(np.float32)
+
+    nt = np.array([21, 13, 1, 0], np.int32)
+    nf = np.array([60, 41, 7, 60], np.int32)
+    live = ((np.arange(n)[None, :, None] < nt[:, None, None])
+            & (np.arange(m)[None, None, :] < nf[:, None, None]))
+    mat = draw()
+    masked = np.where(live, mat, np.float32(1e9))
+    garbage = np.where(live, mat, draw() * 7)
+    ref_kernel = np.asarray(pallas_dtw_jump_times(
+        jnp.asarray(masked), jnp.asarray(nt), jnp.asarray(nf),
+        interpret=True))
+    ref_scan = np.stack([np.asarray(jdtw(jnp.asarray(masked[i]), int(nt[i]),
+                                         int(nf[i])))
+                         for i in range(b)])
+    got = dtw_jump_times(*_t(garbage, nt, nf)).numpy()
+    np.testing.assert_array_equal(got, ref_kernel)
+    np.testing.assert_array_equal(got, ref_scan)
+
+
+def test_attention_to_jump_times_unmasked_matches_jax(monkeypatch):
+    """The alignment pass hands the prep's output to the DTW as it is (no
+    mask between them: what lies outside the live rectangle is the prep's
+    own z values), and the result equals the JAX package's pass on full
+    and cropped rows."""
+    from crisperwhisper_tpu.ops.alignment import attention_to_jump_times as j
+    from crisperwhisper_tpu_torch.ops import dtw as dtw_module
+    from crisperwhisper_tpu_torch.ops.alignment import attention_to_jump_times
+    rng = np.random.default_rng(13)
+    w = np.exp(rng.standard_normal((4, 2, 19, 130))).astype(np.float32)
+    nt = np.array([19, 11, 19, 4], np.int32)
+    nf = np.array([130, 130, 77, 30], np.int32)
+    seen = []
+    real = dtw_module.dtw
+
+    def spy(matrix, *args, **kwargs):
+        seen.append(matrix.clone())
+        return real(matrix, *args, **kwargs)
+
+    monkeypatch.setattr(dtw_module, "dtw", spy)
+    got = attention_to_jump_times(*_t(w), 7, *_t(nt, nf)).numpy()
+    ref = np.asarray(j(jnp.asarray(w), 7, jnp.asarray(nt), jnp.asarray(nf)))
+    np.testing.assert_array_equal(got, ref)
+    (cost,) = seen
+    live = ((np.arange(19)[None, :, None] < nt[:, None, None])
+            & (np.arange(130)[None, None, :] < nf[:, None, None]))
+    outside = cost.numpy()[~live]
+    assert outside.size and np.abs(outside).max() < 1e3   # not 1e9
+
+
+def _constants(source: str) -> dict:
+    """``constexpr int kName = expr;`` of a kernel source."""
+    import re
+    from pathlib import Path
+    from crisperwhisper_tpu_torch import _build
+    src = (Path(_build.CSRC) / source).read_text()
+    k = {}
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", src,
+                                 re.M):
+        k[name] = eval(expr.split("//")[0].replace("/", "//"), {}, dict(k))
+    return k
+
+
+def test_wrapper_constants_match_the_kernel_source():
+    """The wrappers' copies of csrc/dtw.cu's and csrc/align_prep.cu's
+    constants, which their shared-memory gates are computed from, equal
+    the sources'; both sources are built."""
+    from crisperwhisper_tpu_torch import _build
+    from crisperwhisper_tpu_torch.ops import align_prep as ap
+    from crisperwhisper_tpu_torch.ops import dtw as dt
+    k = _constants("dtw.cu")
+    assert (dt.RING_CHUNKS, dt.QUEUE_STEPS, dt.MAX_WARPS, dt.SMEM_LIMIT) == (
+        k["kRingChunks"], k["kQueueSteps"], k["kMaxWarps"], k["kMaxSmem"])
+    k = _constants("align_prep.cu")
+    assert (ap.TILE, ap.THREADS, ap.ROWS_PER_THREAD, ap.SMEM_LIMIT) == (
+        k["kTile"], k["kThreads"], k["kRowsPerThread"], k["kMaxSmem"])
+    assert ap.MAX_TOKENS == 512
+    assert {"dtw.cu", "align_prep.cu"} <= set(_build.SOURCES)
+
+
+def test_every_whisper_geometry_fits_the_kernels():
+    """Every token count up to max_target_positions at every frame count
+    up to max_source_positions (448 x 1500, the largest Whisper window)
+    fits the DTW's 2-bit trace and rings in shared memory, and the
+    alignment prep's strips at the median widths up to 15."""
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.ops import align_prep as ap
+    from crisperwhisper_tpu_torch.ops import dtw as dt
+    arch = WhisperArch()
+    n_max, m_max = arch.max_target_positions, arch.max_source_positions
+    assert (n_max, m_max) == (448, 1500)
+    for n in range(1, n_max + 1):
+        for m in (1, 7, 250, 1000, m_max):
+            warps, step = dt.plan(n, m)
+            assert warps * 32 >= n > (warps - 1) * 32
+            assert warps <= dt.MAX_WARPS and step in dt.STEPS
+            assert dt.smem_bytes(n, m, warps, step) <= dt.SMEM_LIMIT
+        for width in range(1, 16, 2):
+            assert ap.plan(n, m_max, width) <= ap.SMEM_LIMIT
+    # the trace alone at 448 x 1500: 448 rows of 94 words
+    assert dt.smem_bytes(448, 1500, 1, 8) - 32 * 3 * 8 * 4 - 8 == 448 * 94 * 4
+
+
+@pytest.mark.parametrize("case", ["dtw_frames", "dtw_rows", "prep_rows",
+                                  "prep_width"])
+def test_shapes_over_the_budget_raise(case):
+    """A shape the kernels cannot hold is refused with a ValueError that
+    names the limit, not routed anywhere else."""
+    from crisperwhisper_tpu_torch.ops import align_prep as ap
+    from crisperwhisper_tpu_torch.ops import dtw as dt
+    with pytest.raises(ValueError, match="232448|at most|exceed"):
+        if case == "dtw_frames":
+            dt.plan(448, 3000)          # trace 448 x 188 words
+        elif case == "dtw_rows":
+            dt.plan(16 * 32 + 1, 100)
+        elif case == "prep_rows":
+            ap.plan(513, 1500, 7)
+        else:
+            ap.plan(512, 1500, 31)      # two strips of 512 x 68 floats

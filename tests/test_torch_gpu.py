@@ -135,6 +135,157 @@ def test_dtw_kernel_matches_plain_exactly(gen, b, n, m):
     assert dtw.launches == before + 1
 
 
+def _dtw_case(own, b, n, m, kind):
+    if kind == "ties":          # integer costs: ties on the tie-break
+        return torch.randint(0, 3, (b, n, m), generator=own, device="cuda",
+                             dtype=torch.int32).float()
+    return torch.randn((b, n, m), generator=own, device="cuda")
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 65, 96, 97, 381, 448])
+def test_dtw_kernel_exact_at_lane_and_band_edges(gen, n, kind):
+    """Token counts at the edges of a lane's run and of a warp's band,
+    rows with n_tokens = 0, n_frames = 1 and n_tokens < N, the cells
+    outside each row's live rectangle left random (never read): exact
+    against the plain version, one launch a call."""
+    from crisperwhisper_tpu_torch.ops.dtw import dtw
+    own = torch.Generator(device="cuda").manual_seed(n)   # gen untouched
+    m = 1500 if n >= 96 else 257
+    mat = _dtw_case(own, 4, n, m, kind)
+    nt = torch.tensor([n, n // 2, 0, max(n - 3, 1)], dtype=torch.int32,
+                      device="cuda")
+    nf = torch.tensor([m, 1, m - 5, 37], dtype=torch.int32, device="cuda")
+    before = dtw.launches
+    assert testing.dtw_error(mat, nt, nf) == 0
+    assert dtw.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_dtw_kernel_exact_at_batch_16(gen, kind):
+    """The CLI's batch of 16 windows at [16, 96, 1500], random n_tokens and
+    n_frames, random cells outside the rectangles; the stamps split one
+    launch into its walk and its backtrace."""
+    from crisperwhisper_tpu_torch.ops.dtw import dtw
+    own = torch.Generator(device="cuda").manual_seed(16)
+    mat = _dtw_case(own, 16, 96, 1500, kind)
+    nt = torch.randint(0, 97, (16,), generator=own, device="cuda",
+                       dtype=torch.int32)
+    nf = torch.randint(1, 1501, (16,), generator=own, device="cuda",
+                       dtype=torch.int32)
+    before = dtw.launches
+    assert testing.dtw_error(mat, nt, nf) == 0
+    assert dtw.launches == before + 1
+    total, walk, back = testing.dtw_phases(mat, nt, nf)
+    assert 0 < walk + back <= total * 1.001 + 1e-6
+
+
+# Runs in a child process: a trap ends the process's CUDA context.
+_TRAP_CHILD = r"""
+import ctypes, sys
+import torch
+from crisperwhisper_tpu_torch.ops import dtw as dt
+from crisperwhisper_tpu_torch.ops.alignment import dtw_jump_times
+lib = ctypes.CDLL(sys.argv[1])
+ptr, i32 = ctypes.c_void_p, ctypes.c_int
+lib.cw_dtw.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+gen = torch.Generator(device="cuda").manual_seed(0)
+
+def run(n, m):
+    mat = torch.randn((1, n, m), generator=gen, device="cuda")
+    nt = torch.tensor([n], dtype=torch.int32, device="cuda")
+    nf = torch.tensor([m], dtype=torch.int32, device="cuda")
+    out = torch.empty((1, n), dtype=torch.int32, device="cuda")
+    warps, step = dt.plan(n, m)
+    err = lib.cw_dtw(mat.data_ptr(), nt.data_ptr(), nf.data_ptr(),
+                     out.data_ptr(), None, 1, n, m, warps, step,
+                     torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    torch.cuda.synchronize()
+    return out.cpu(), dtw_jump_times(mat.cpu(), nt.cpu(), nf.cpu())
+
+got, want = run(32, 257)
+assert torch.equal(got, want)
+print("one warp exact", flush=True)
+run(448, 1500)
+print("no trap", flush=True)
+"""
+
+
+def test_dtw_kernel_traps_when_a_hand_off_never_comes(gen, tmp_path):
+    """A build of csrc/dtw.cu whose hand-off waits give up at the first
+    short observation (CW_DTW_SPIN_LIMIT=0) is exact with one warp, which
+    never waits, and fails loudly at 14 warps, where a warp's first wait
+    runs out: a wait that never ends is an error, not a wrong path."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from crisperwhisper_tpu_torch import _build
+    obj, so = tmp_path / "dtw.o", tmp_path / "libdtw_trap.so"
+    _build.compile_object(_build.CSRC / "dtw.cu", obj,
+                          "-DCW_DTW_SPIN_LIMIT=0")
+    _build.link([obj], so)
+    root = str(Path(_build.__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-c", _TRAP_CHILD, str(so)],
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": root})
+    assert "one warp exact" in proc.stdout, proc.stderr
+    assert "no trap" not in proc.stdout and proc.returncode != 0
+    assert "CUDA error" in proc.stderr, proc.stderr
+
+
+def _edge_frames(b, m, width):
+    """n_frames at a 32-frame tile edge, one each side, at and under the
+    median's half width, and full."""
+    edges = [32, 31, 33, 64, width // 2, max(width // 2 - 1, 0), m]
+    return torch.tensor([min(edges[i % len(edges)], m) for i in range(b)],
+                        dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("b,a,t,m", [(16, 15, 96, 1500), (3, 15, 1, 1500),
+                                     (2, 4, 97, 1500), (2, 15, 381, 1500),
+                                     (3, 1, 40, 701)])
+def test_align_prep_kernel_shapes_match_plain(gen, b, a, t, m):
+    """The CLI's batch of 16, T = 1, 97 and 381, one head, and a frame
+    count that is not a multiple of 4 (the 4-byte copy path): within the
+    band on the live cells, one launch a call."""
+    from crisperwhisper_tpu_torch.ops.align_prep import align_prep
+    own = torch.Generator(device="cuda").manual_seed(b * t + a)
+    w = torch.softmax(torch.randn((b, a, t, m), generator=own,
+                                  device="cuda") * 3.0, dim=-1).contiguous()
+    nt = torch.randint(0, t + 1, (b,), generator=own, device="cuda",
+                       dtype=torch.int32)
+    nt[0] = t
+    nf = torch.full((b,), m, dtype=torch.int32, device="cuda")
+    nf[-1] = m - 37
+    before = align_prep.launches
+    err, got = testing.align_prep_error(w, nt, nf)
+    assert align_prep.launches == before + 1
+    assert err <= testing.PREP_BAND
+    dead = ~testing.live_cells(nt, nf, t, m)
+    assert bool((got[dead] == 0).all())
+
+
+@pytest.mark.parametrize("width", [1, 3, 5, 7, 9, 17])
+def test_align_prep_kernel_frames_at_tile_edges(gen, width):
+    """n_frames at a tile edge, one each side of it, and at or under the
+    median's half width (reflection folds back past 0), for the network
+    widths and one the rank selection takes (17)."""
+    from crisperwhisper_tpu_torch.ops.align_prep import align_prep
+    own = torch.Generator(device="cuda").manual_seed(100 + width)
+    b, a, t, m = 7, 3, 25, 300
+    w = torch.softmax(torch.randn((b, a, t, m), generator=own,
+                                  device="cuda") * 3.0, dim=-1).contiguous()
+    nt = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    nt[1] = 9
+    before = align_prep.launches
+    err, _ = testing.align_prep_error(w, nt, _edge_frames(b, m, width), width)
+    assert align_prep.launches == before + 1
+    assert err <= testing.PREP_BAND, (width, err)
+
+
 def test_tiny_slice_on_card_matches_cpu(gen, tmp_path):
     """Same seeded TINY weights through the whole slice on CUDA (kernels)
     and on the CPU (plain versions): equal tokens and words, timestamps
