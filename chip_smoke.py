@@ -8,7 +8,8 @@ Phases, one line each on stdout:
   1. build the CUDA kernels from crisperwhisper_tpu_torch/csrc (one nvcc
      per source, in parallel; ptxas registers, spills and shared memory of
      both encoder-attention kernels, of the decode-step kernel and of the
-     log-mel, decode-attention and probe kernels; registers and spills
+     log-mel kernel and its clip kernel, the decode-attention kernel's
+     instances and the probe kernel; registers and spills
      over the instantiations of the align-prep and DTW kernels);
   2. each kernel against its plain PyTorch version on the card at the
      main path's shapes, with the maximum error and both times (the
@@ -44,17 +45,21 @@ Phases, one line each on stdout:
      plain version, timed per call with the rings' plan at hand (as
      models/whisper.py calls it) and looking it up, and, replayed from a
      CUDA graph, on the device alone; the fused log-mel at the CLI's
-     batch of 16 windows x 128 mels (beside extract_features,
-     torch.stft); the int8 cross
-     attention of v1 and v2 at B = 16, H = 20, K = 1500 with an f32 q; the
-     stacked-cache attention (v3) at the reference microbench's shape (L
-     = 2, B = 64, H = 20, T = 1536, sel of 15 heads) for int8, int4 and
-     bf16 caches; the probe kernel, exact, timed per call and from a CUDA
-     graph. Each timed kernel also prints
+     batch of 16 windows x 128 mels, timed in turns with
+     extract_features (torch.stft), with its split into the FFT launch
+     and the clip launch (globaltimer stamps); the
+     int8 cross attention of v1 and v2 at B = 16, H = 20, K = 1500 with
+     an f32 q; the stacked-cache attention (v3) at the reference
+     microbench's shape (L = 2, B = 64, H = 20, T = 1536, sel of 15
+     heads) for int8, int4 and bf16 caches and at phase 8 (c)'s rows (B
+     = 4, T = 1500) for int8 and int4; each decode-attention row with the
+     cluster size its plan picked, timed per call and, from a CUDA graph,
+     on the device; the probe kernel, exact, timed per call and from a
+     CUDA graph. Each timed kernel also prints
      its bound (the bytes it must move over 3.35 TB/s, or its operations
      over the peak rate of their type, whichever is larger; for the
-     log-mel the operations of an FFT, and its own design's DFT product
-     beside them; for the DTW also its chain of dependent anti-diagonals)
+     log-mel the operations of an FFT; for the DTW also its chain of
+     dependent anti-diagonals)
      and the time
      of the one PyTorch call that computes the same function, where there
      is one;
@@ -251,17 +256,14 @@ def _step_work(params, arch, cache, position: int, m: int, multi: bool,
     return weights + vec + cross + ring + io, ops
 
 
-def _log_mel_work(cfg, wave) -> tuple[float, float, float]:
+def _log_mel_work(cfg, wave) -> tuple[float, float]:
     """(bytes, f32 operations) that the log-mel function needs on ``wave``
-    [B, n_samples], and the operations of the kernel's own design. The
-    function: each sample read once, each feature written once, the mel
-    bank's nonzero weights read once; per frame the window (one multiply
-    a tap), a real FFT of n_fft points (2.5 n log2 n, half the 5 n log2 n
-    of a complex FFT), the power (3 a bin), the mel sums over the bank's
-    nonzeros (2 each; a bin falls in at most two filters), and log10, the
-    clip and the affine step (4 a feature). The design: the DFT as a
-    product with the [n_fft, 2 n_bins] basis and a dense mel product, two
-    operations a multiply-add."""
+    [B, n_samples]: each sample read once, each feature written once, the
+    mel bank's nonzero weights read once; per frame the window (one
+    multiply a tap), a real FFT of n_fft points (2.5 n log2 n, half the 5
+    n log2 n of a complex FFT), the power (3 a bin), the mel sums over the
+    bank's nonzeros (2 each; a bin falls in at most two filters), and
+    log10, the clip and the affine step (4 a feature)."""
     import math
 
     from crisperwhisper_tpu_torch.audio import fused_mel as fm
@@ -271,8 +273,7 @@ def _log_mel_work(cfg, wave) -> tuple[float, float, float]:
     n_bytes = _nbytes(wave) + 4 * (frames * n_mels + nonzero)
     ops = frames * (cfg.n_fft + 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
                     + 3 * n_bins + 2 * nonzero + 4 * n_mels)
-    dft_ops = 2 * frames * (cfg.n_fft * 2 * n_bins + n_bins * n_mels)
-    return n_bytes, ops, dft_ops
+    return n_bytes, ops
 
 
 def phase0_device() -> str:
@@ -311,8 +312,9 @@ def phase1_build() -> None:
         _ptxas_summary(kern.ptxas_log, "decode_step_kernel")), flush=True)
     print("phase 1 log_mel.cu, decode_attention.cu, probe.cu: " + "; ".join(
         sum((_ptxas_summary(kern.ptxas_log, name) for name in (
-            "log_mel_kernel", "decode_attention_kernel",
-            "probe_add_kernel")), [])), flush=True)
+            "log_mel_kernel", "clip_affine_kernel",
+            "decode_attention_kernel", "probe_add_kernel")), [])),
+        flush=True)
 
 
 def _ptxas_summary(log: str, kernel: str) -> list[str]:
@@ -769,18 +771,22 @@ def phase2_remaining(large) -> list[dict]:
     ms = _time_ms(lambda: fm.fused_log_mel(wave, cfg), 20)
     plain_ms = _time_ms(lambda: fm.log_mel_plain(wave, cfg), 5)
     lib_ms = _time_ms(lambda: extract_features(wave, cfg), 20)
-    n_bytes, ops, dft_ops = _log_mel_work(cfg, wave)
+    lib_ms_2 = _time_ms(lambda: extract_features(wave, cfg), 20)
+    ms_2 = _time_ms(lambda: fm.fused_log_mel(wave, cfg), 20)
+    split = [testing.log_mel_phases(wave, cfg) for _ in range(3)]
+    n_bytes, ops = _log_mel_work(cfg, wave)
     bound, by = _bound(n_bytes, ops, "f32")
     print(f"phase 2 log_mel: [16, {cfg.n_samples}] -> [16, "
           f"{cfg.feature_size}, {cfg.nb_max_frames}] err against the plain "
           f"twin {errs['plain'][0]:.3g}, against extract_features "
-          f"{errs['stft'][0]:.3g} (band {testing.MEL_BAND}); {ms:.3f} ms vs "
-          f"plain {plain_ms:.3f} ms, extract_features (torch.stft) "
-          f"{lib_ms:.3f} ms, bound {bound:.4f} ms ({by}: {n_bytes / 1e6:.1f} "
-          f"MB; {ops / 1e9:.3f} GFLOP with an FFT); the kernel's own design, "
-          f"the DFT as a product with the basis and a dense mel product, "
-          f"does {dft_ops / 1e9:.1f} GFLOP, "
-          f"{dft_ops / PEAK_OPS_PER_MS['f32']:.4f} ms at the f32 peak",
+          f"{errs['stft'][0]:.3g} (band {testing.MEL_BAND}); "
+          f"{ms:.4f} / {ms_2:.4f} ms a call (kernel, extract_features, "
+          f"extract_features, kernel: {lib_ms:.4f} / {lib_ms_2:.4f} ms), "
+          "on the device (globaltimer stamps of 3 calls: start to end, FFT "
+          "launch, clip launch) " + "; ".join(
+              f"{a:.4f}, {f:.4f}, {c:.4f} ms" for a, f, c in split)
+          + f"; plain {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}: "
+          f"{n_bytes / 1e6:.1f} MB; {ops / 1e9:.3f} GFLOP with an FFT)",
           flush=True)
     entries.append({
         "name": "log_mel", "route": "cuda",
@@ -807,14 +813,18 @@ def phase2_remaining(large) -> list[dict]:
         for key, (err, band) in errs.items():
             _require(err <= band, f"{name}: {key} max err {err} > {band}")
         ms = _time_ms(lambda: fn(*args), 20)
+        device_ms = _graph_ms(lambda: fn(*args), 20)
         plain_ms = _time_ms(lambda: da.cross_attention_int8_plain(
             *args, q_bf16=v2), 20)
+        cluster, _ = da._plan_for(q, 16 * 20, 1500, torch.int8)
         print(f"phase 2 {name}: q f32 [16, 20, 1, 64], int8 K/V [16, 20, "
               f"1500, 64]: " + ", ".join(f"{key} err {e:.3g} (band "
                                          f"{b:.3g})"
                                          for key, (e, b) in errs.items())
-              + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), no single library call", flush=True)
+              + f"; {ms:.4f} ms a call ({device_ms:.4f} ms on the device, "
+              f"from a CUDA graph) vs plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), clusters of {cluster}, no single "
+              "library call", flush=True)
         entries.append({
             "name": name, "route": "cuda",
             "source": "crisperwhisper_tpu_torch/csrc/decode_attention.cu",
@@ -824,43 +834,56 @@ def phase2_remaining(large) -> list[dict]:
     del q, k, ks, v, vs, args
 
     # --- v3 at the reference microbench's shape (decode_gemv_v3.py:274)
+    # and at phase 8 (c)'s rows (the 4 windows of the 60 s WAV, K = 1500)
     sel = torch.zeros((20, testing.LARGE_V3_ALIGN_HEADS), device=dev)
     for a in range(testing.LARGE_V3_ALIGN_HEADS):
         sel[a % 20, a] = 1.0
-    rows = []
-    for kind in ("int8", "int4", "bf16"):
-        q, k, ks, v, vs = testing.decode_attention_inputs(
-            (2, 64, 20, 1536, 64), kind, gen, torch.bfloat16)
-        kw = dict(sel=sel) if kind == "bf16" else dict(k_scale=ks,
-                                                       v_scale=vs, sel=sel)
-        errs = testing.decode_gemv_errors(q, k, v, 1, **kw)
-        for key, (err, band) in errs.items():
-            _require(err <= band, f"decode_gemv_attention {kind}: {key} max "
-                                  f"err {err} > {band}")
-        ms = _time_ms(lambda: da.decode_gemv_attention(q, k, v, 1, **kw), 20)
-        plain_ms = _time_ms(lambda: da.decode_gemv_plain(q, k, v, 1, **kw),
-                            5)
-        layer = [x[1] for x in (k, v) + ((ks, vs) if kind != "bf16" else ())]
-        bound, by = _bound(_nbytes(q, sel, *layer) + 4 * q.numel()
-                           + 4 * 64 * sel.shape[1] * 1536,
-                           4 * 64 * 20 * 1536 * 64, "f32")
-        rows.append(f"{kind} " + ", ".join(
-            f"{key} err {e:.3g} (band {b:.3g})"
-            for key, (e, b) in errs.items())
-            + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by})")
-        if kind == "int8":
-            entries.append({
-                "name": "decode_gemv_attention", "route": "cuda",
-                "source": "crisperwhisper_tpu_torch/csrc/decode_attention.cu",
-                "replaces": "experiments/decode_gemv_v3.py:74",
-                "max_abs_err": errs["out"][0], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": None})
-        del q, k, ks, v, vs
-    print("phase 2 decode_gemv_attention: q bf16 [64, 20, 64], layer 1 of "
-          "[2, 64, 20, 1536, 64] caches, sel of 15 heads: " + "; ".join(rows)
-          + "; no single library call", flush=True)
+    for label, shape, kinds in (
+            ("microbench", (2, 64, 20, 1536, 64), ("int8", "int4", "bf16")),
+            ("phase 8 (c) rows", (2, 4, 20, 1500, 64), ("int8", "int4"))):
+        rows = []
+        for kind in kinds:
+            q, k, ks, v, vs = testing.decode_attention_inputs(
+                shape, kind, gen, torch.bfloat16)
+            kw = dict(sel=sel) if kind == "bf16" else dict(
+                k_scale=ks, v_scale=vs, sel=sel)
+            errs = testing.decode_gemv_errors(q, k, v, 1, **kw)
+            for key, (err, band) in errs.items():
+                _require(err <= band, f"decode_gemv_attention {label} "
+                                      f"{kind}: {key} max err {err} > "
+                                      f"{band}")
+            ms = _time_ms(lambda: da.decode_gemv_attention(q, k, v, 1, **kw),
+                          20)
+            device_ms = _graph_ms(
+                lambda: da.decode_gemv_attention(q, k, v, 1, **kw), 20)
+            plain_ms = _time_ms(lambda: da.decode_gemv_plain(q, k, v, 1,
+                                                             **kw), 5)
+            layer = [x[1] for x in (k, v) + ((ks, vs) if kind != "bf16"
+                                             else ())]
+            n_b, t = shape[1], shape[3]
+            bound, by = _bound(_nbytes(q, sel, *layer) + 4 * q.numel()
+                               + 4 * n_b * sel.shape[1] * t,
+                               4 * 64 * 20 * t * n_b, "f32")
+            cluster, piece = da._plan_for(q, n_b * 20, t, k.dtype)
+            rows.append(f"{kind} " + ", ".join(
+                f"{key} err {e:.3g} (band {b:.3g})"
+                for key, (e, b) in errs.items())
+                + f"; {ms:.4f} ms a call ({device_ms:.4f} ms on the device), "
+                f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                f"clusters of {cluster}, pieces of {piece} keys")
+            if kind == "int8" and label == "microbench":
+                entries.append({
+                    "name": "decode_gemv_attention", "route": "cuda",
+                    "source": "crisperwhisper_tpu_torch/csrc/"
+                              "decode_attention.cu",
+                    "replaces": "experiments/decode_gemv_v3.py:74",
+                    "max_abs_err": errs["out"][0], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None})
+            del q, k, ks, v, vs
+        print(f"phase 2 decode_gemv_attention {label}: q bf16 [{shape[1]}, "
+              f"20, 64], layer 1 of {list(shape)} caches, sel of 15 heads: "
+              + "; ".join(rows) + "; no single library call", flush=True)
 
     # --- the probe: x * 2 on one (8, 128) f32 tile, exact
     x = torch.randn((8, 128), generator=gen, device=dev)

@@ -28,7 +28,8 @@ refused launch never runs and a later ``torch.cuda.synchronize()`` would
 not report it.
 
 ``launcher`` is the lean path from a wrapper to its C entry (the
-alignment prep, the DTW, the ring writes and the probe): the raw handle
+alignment prep, the DTW, the ring writes, the log-mel, the decode
+attention and the probe): the raw handle
 of PyTorch's current stream (``current_stream``, no Python Stream
 object), a device guard only when the tensors' device is not the current
 one, one ctypes call, and ``check``.
@@ -157,13 +158,13 @@ def kernels() -> Kernels:
     lib.cw_decode_step.restype = i32
     lib.cw_ring_write.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.cw_ring_write.restype = i32
-    lib.cw_log_mel.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.cw_log_mel.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
     lib.cw_log_mel.restype = i32
     for entry in (lib.cw_cross_attention_int8,
                   lib.cw_cross_attention_int8_v2):
-        entry.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        entry.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         entry.restype = i32
-    lib.cw_decode_gemv_attention.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
+    lib.cw_decode_gemv_attention.argtypes = [ptr] * 9 + [i32] * 12 + [ptr]
     lib.cw_decode_gemv_attention.restype = i32
     lib.cw_probe_add.argtypes = [ptr, ptr, i32, ptr]
     lib.cw_probe_add.restype = i32

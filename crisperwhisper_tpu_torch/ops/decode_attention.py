@@ -15,6 +15,10 @@ one function with different rounding points (csrc/decode_attention.cu):
     mask, ``key_mask`` and alignment selector ``sel``; returns out
     [B, H, D] f32 (and the aligned rows [B, A, T] f32 with ``sel``).
 
+The kernel splits each (row, head)'s keys across a cluster of blocks
+whose size ``plan`` picks from rows x heads and the card's SM count; each
+wrapper launches it through ``_build.launcher``.
+
 ``decode_gemv_attention`` takes the port's cache layout, not the TPU's
 sequence-last [L, B, H, Dh, T]: the caches that ``models.whisper.
 init_cache`` builds, [L, B, H, T, Dh] in int8, bf16 or f32, or packed int4
@@ -30,17 +34,89 @@ only for CPU tensors. The head dim is 64 (every Whisper size).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
 from ..models.whisper import cache_values
 
 HEAD_DIM = 64
-MAX_KEYS = 8192                       # the kernel keeps the scores in SMEM
+MAX_KEYS = 8192                       # the kernel's limit (kMaxKeys)
 NEG_INF = -1e9                        # the reference's mask fill
 _CACHE_KINDS = {torch.int8: 0, torch.uint8: 1, torch.bfloat16: 2,
                 torch.float32: 3}     # uint8: packed int4
 _Q_DTYPES = (torch.float32, torch.bfloat16)
+_ROW_BYTES = {torch.int8: 64, torch.uint8: 32, torch.bfloat16: 128,
+              torch.float32: 256}     # bytes of a cache row
+# mirrors of csrc/decode_attention.cu's constants (a CPU test parses them)
+THREADS = 128
+MAX_CLUSTER = 8
+SLOTS = 4                             # K (and V) pieces in flight a block
+HEAD_BYTES = 16 * SLOTS + 256         # an mbarrier a slot, then q
+SMEM_LIMIT = 232448                   # the H100's 227 KB a block
+# the plan's aims: at least FILL blocks an SM in the grid, a block's whole
+# slice within SMEM_BUDGET (four blocks an SM) where the cluster can grow,
+# and within STREAM_BUDGET (two blocks an SM) before it streams. A block's
+# exchanges after its data has landed leave the SM's loads idle unless
+# other blocks are loading, so four blocks an SM beat two, while a larger
+# cluster than needed only adds exchanges: the two aims pick the fastest
+# cluster size of a sweep of 2, 4 and 8 at chip_smoke's shapes (PERF.md),
+# where phase 8 (c)'s rows tie at 4 and 8
+FILL = 8
+SMEM_BUDGET = 56 * 1024
+STREAM_BUDGET = 112 * 1024
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def smem_bytes(per: int, piece: int, row: int, n_align: int = 0) -> int:
+    """Dynamic shared memory of one block (csrc/decode_attention.cu
+    ``smem_bytes``): the mbarriers and q, SLOTS K and SLOTS V slots of
+    ``piece`` rows of ``row`` bytes; for ``per`` keys the f32 scores, the
+    16-byte-aligned spans of the bf16 K and V scales and of the mask bytes;
+    the warps' P.V partials; the head's sel columns and weights."""
+    return (HEAD_BYTES + 2 * SLOTS * piece * row + 4 * _round16(per)
+            + 2 * _round16(2 * per + 15) + _round16(per + 15)
+            + 4 * (THREADS // 32) * HEAD_DIM
+            + 8 * ((n_align + 3) & ~3))
+
+
+@functools.lru_cache(maxsize=256)
+def plan(pairs: int, keys: int, row: int, sms: int) -> tuple[int, int]:
+    """(cluster, piece) for ``pairs`` (row, head) pairs of ``keys`` keys
+    of ``row`` bytes on a card of ``sms`` SMs: the smallest cluster of 2,
+    4 or 8 blocks that puts FILL blocks on every SM and keeps a block's
+    whole slice of K and V within SMEM_BUDGET; each block loads its slice
+    in SLOTS pieces of ``piece`` keys. Where even a cluster of 8 leaves a
+    slice over STREAM_BUDGET, the slice streams through the slots in the
+    largest pieces that fit."""
+    def quarter(c):
+        per = -(-keys // c)
+        return per, -(-per // SLOTS)
+    cluster = 2
+    per, piece = quarter(cluster)
+    while cluster < MAX_CLUSTER and (
+            pairs * cluster < FILL * sms
+            or smem_bytes(per, piece, row) > SMEM_BUDGET):
+        cluster *= 2
+        per, piece = quarter(cluster)
+    if smem_bytes(per, piece, row) <= STREAM_BUDGET:
+        return cluster, piece
+    return cluster, (STREAM_BUDGET - smem_bytes(per, 0, row)) // (
+        2 * SLOTS * row)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plan_for(q: torch.Tensor, pairs: int, keys: int,
+              cache: torch.dtype) -> tuple[int, int]:
+    return plan(pairs, keys, _ROW_BYTES[cache], _sm_count(q.get_device()))
 
 
 def _operand(c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -66,14 +142,14 @@ def cross_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor,
 
 
 def _check_cross(q, k_q, k_s, v_q, v_s) -> None:
-    shape = (*q.shape[:2], k_q.shape[2] if k_q.dim() == 4 else -1, HEAD_DIM)
-    ok = (q.dim() == 4 and tuple(q.shape[2:]) == (1, HEAD_DIM)
-          and q.dtype in _Q_DTYPES
-          and all(x.dtype == torch.int8 and tuple(x.shape) == shape
-                  for x in (k_q, v_q))
-          and all(x.dtype == torch.bfloat16 and tuple(x.shape) == shape[:3]
-                  + (1,) for x in (k_s, v_s))
-          and 0 < shape[2] <= MAX_KEYS)
+    qs, ks = q.shape, k_q.shape
+    ok = (len(qs) == 4 and qs[2] == 1 and qs[3] == HEAD_DIM
+          and q.dtype in _Q_DTYPES and len(ks) == 4 and ks[:2] == qs[:2]
+          and ks[3] == HEAD_DIM and 0 < ks[2] <= MAX_KEYS
+          and k_q.dtype == torch.int8 and v_q.dtype == torch.int8
+          and v_q.shape == ks and k_s.dtype == torch.bfloat16
+          and v_s.dtype == torch.bfloat16 and k_s.shape == ks[:3] + (1,)
+          and v_s.shape == k_s.shape)
     if not ok:
         raise ValueError(
             "cross_attention_int8: expected q [B, H, 1, 64] f32/bf16, int8 "
@@ -83,18 +159,20 @@ def _check_cross(q, k_q, k_s, v_q, v_s) -> None:
     _check_card(k_q, v_q, q, k_s, v_s)
 
 
-def _check_card(k: torch.Tensor, v: torch.Tensor,
+def _check_card(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
                 *others: torch.Tensor | None) -> None:
-    """Every tensor contiguous on the cache's card; the caches 16-byte
-    aligned (the kernel reads their rows in 16-byte loads)."""
-    dev = k.device
-    for x in (k, v, *others):
-        if x is not None and (x.device != dev or not x.is_contiguous()):
+    """Every tensor contiguous on the cache's card; q and the caches
+    16-byte aligned (the kernel copies them into shared memory by bulk
+    copies of 16-byte granules)."""
+    index = k.get_device()
+    for x in (k, v, q, *others):
+        if x is not None and (x.get_device() != index
+                              or not x.is_contiguous()):
             raise ValueError("decode attention: every tensor must be "
-                             f"contiguous on {dev}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode attention: the K/V caches must start on "
-                         "a 16-byte boundary")
+                             f"contiguous on {k.device}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("decode attention: q and the K/V caches must "
+                         "start on a 16-byte boundary")
 
 
 def _launch_cross(entry: str, q, k_q, k_s, v_q, v_s
@@ -104,13 +182,11 @@ def _launch_cross(entry: str, q, k_q, k_s, v_q, v_s
     t = k_q.shape[2]
     out = torch.empty_like(q)
     probs = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = getattr(_build.kernels().lib, entry)(
-            q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-            v_s.data_ptr(), out.data_ptr(), probs.data_ptr(), b, h, t,
-            int(q.dtype == torch.bfloat16), stream)
-    _build.check(err, entry)
+    _build.launcher(entry)(
+        q.get_device(), q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
+        v_q.data_ptr(), v_s.data_ptr(), out.data_ptr(), probs.data_ptr(), b,
+        h, t, int(q.dtype == torch.bfloat16),
+        *_plan_for(q, b * h, t, torch.int8))
     return out, probs
 
 
@@ -245,17 +321,13 @@ def decode_gemv_attention(q: torch.Tensor, k_stack: torch.Tensor,
 
     def ptr(x):
         return None if x is None else x.data_ptr()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = _build.kernels().lib.cw_decode_gemv_attention(
-            q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
-            ptr(k_scale), ptr(v_scale), ptr(key_mask), ptr(sel),
-            out.data_ptr(), ptr(aligned), _CACHE_KINDS[k_stack.dtype],
-            n_layers, b, h, t, layer,
-            0 if position is None else max(min(int(position), t), -1),
-            int(position is not None), n_align,
-            int(q.dtype == torch.bfloat16), stream)
-    _build.check(err, "decode_gemv_attention")
+    _build.launcher("cw_decode_gemv_attention")(
+        q.get_device(), q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
+        ptr(k_scale), ptr(v_scale), ptr(key_mask), ptr(sel), out.data_ptr(),
+        ptr(aligned), _CACHE_KINDS[k_stack.dtype], n_layers, b, h, t, layer,
+        0 if position is None else max(min(int(position), t), -1),
+        int(position is not None), n_align, int(q.dtype == torch.bfloat16),
+        *_plan_for(q, b * h, t, k_stack.dtype))
     decode_gemv_attention.launches += 1
     return out if sel is None else (out, aligned)
 

@@ -324,6 +324,21 @@ def dtw_phases(cost: torch.Tensor, n_tokens: torch.Tensor,
             float(t[last, 2] - t[last, 1]) / 1e6)
 
 
+def log_mel_phases(waveform: torch.Tensor, cfg) -> tuple[float, float,
+                                                          float]:
+    """One call of the fused log-mel kernel with its stamps on: (milliseconds
+    from the first FFT block's start to the last clip block's end, the FFT
+    launch's and the clip launch's share of them) on the device's
+    %globaltimer. Needs the card."""
+    from .audio.fused_mel import fused_log_mel
+    stamps = torch.tensor([-1, 0, 0], dtype=torch.int64,
+                          device=waveform.device)
+    fused_log_mel(waveform, cfg, stamps=stamps)
+    t = stamps.cpu().double()
+    return (float(t[2] - t[0]) / 1e6, float(t[1] - t[0]) / 1e6,
+            float(t[2] - t[1]) / 1e6)
+
+
 def mel_errors(waveform: torch.Tensor, cfg) -> tuple[dict, torch.Tensor]:
     """The fused log-mel kernel against its plain twin and against
     ``extract_features``: ({name: (max error, band)}, the kernel's

@@ -251,3 +251,117 @@ def test_cpu_wrappers_refuse_other_devices():
         da.cross_attention_int8(q, q, q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         da.decode_gemv_attention(q[0], q, q, 0)
+
+
+# --- the kernel's launch plan (csrc/decode_attention.cu takes it as given)
+
+_H100_SMS = 132
+
+
+@pytest.mark.parametrize("name,pairs,keys,row,want", [
+    ("microbench int8", 64 * 20, 1536, 64, (4, 96)),
+    ("microbench int4", 64 * 20, 1536, 32, (4, 96)),
+    ("microbench bf16", 64 * 20, 1536, 128, (8, 48)),
+    ("v1/v2 at batch 16", 16 * 20, 1500, 64, (4, 94)),
+    ("phase 8 (b)/(c) int8 cross", 4 * 20, 1500, 64, (8, 47)),
+    ("phase 8 (c) int4 cross", 4 * 20, 1500, 32, (8, 47)),
+    ("phase 8 (c) self ring", 4 * 20, 448, 64, (8, 14))])
+def test_plan_fills_the_card_at_the_smoke_shapes(name, pairs, keys, row,
+                                                 want):
+    """The cluster size at chip_smoke's shapes: phase 8's 4 rows x 20
+    heads take clusters of 8 (FILL blocks an SM); v1/v2's 16 rows and the
+    64-row microbench clusters of 4 for int8 and int4 (a slice within four
+    blocks an SM) and 8 for bf16 (whose slice of 4 would not fit four);
+    each slice whole in shared memory, in SLOTS pieces."""
+    cluster, piece = da.plan(pairs, keys, row, _H100_SMS)
+    assert (cluster, piece) == want, name
+    per = -(-keys // cluster)
+    assert piece == -(-per // da.SLOTS)
+    assert pairs * cluster >= da.FILL * _H100_SMS or cluster == 8
+    assert da.smem_bytes(per, piece, row) <= da.SMEM_BUDGET or cluster == 8
+    assert da.smem_bytes(per, piece, row) <= da.STREAM_BUDGET
+
+
+@pytest.mark.parametrize("row", [32, 64, 128, 256])
+@pytest.mark.parametrize("keys", [1, 31, 1500, 1536, 4097, 8192])
+@pytest.mark.parametrize("pairs", [1, 80, 1280])
+def test_plan_fits_every_shape_the_wrapper_takes(row, keys, pairs):
+    """Every cache width, key count and grid: a cluster of 2, 4 or 8
+    blocks, pieces of at least one key, shared memory within the stream
+    budget (and the per-block budget below a cluster of 8); a slice
+    streams through the slots (more than SLOTS pieces) only at a cluster
+    of 8, in the largest pieces that fit."""
+    cluster, piece = da.plan(pairs, keys, row, _H100_SMS)
+    per = -(-keys // cluster)
+    assert cluster in (2, 4, 8) and 1 <= piece <= per
+    assert da.smem_bytes(per, piece, row) <= da.STREAM_BUDGET
+    if cluster < 8:
+        assert da.smem_bytes(per, piece, row) <= da.SMEM_BUDGET
+    if -(-per // piece) > da.SLOTS:
+        assert cluster == 8
+        assert da.smem_bytes(per, piece + 1, row) > da.STREAM_BUDGET
+
+
+def test_plan_constants_match_the_kernel_source():
+    import re
+    src = open(os.path.join(os.path.dirname(da.__file__), "..", "csrc",
+                            "decode_attention.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)", src)
+                   .group(1))
+    assert const("kD") == da.HEAD_DIM
+    assert const("kThreads") == da.THREADS
+    assert const("kMaxKeys") == da.MAX_KEYS
+    assert const("kMaxCluster") == da.MAX_CLUSTER
+    assert const("kSlots") == da.SLOTS
+    assert const("kMaxSmem") == da.SMEM_LIMIT
+    assert "constexpr int kHeadBytes = 16 * kSlots + 256;" in src
+    assert da.HEAD_BYTES == 16 * da.SLOTS + 256
+    assert da.SMEM_BUDGET <= da.STREAM_BUDGET <= da.SMEM_LIMIT // 2
+    # the kernel's layout formula, term by term
+    body = re.search(r"constexpr size_t smem_bytes\(.*?\{(.*?)\}", src,
+                     re.S).group(1)
+    for term in ("kHeadBytes + 2 * (size_t)kSlots * piece * row",
+                 "4 * round16(per)", "2 * round16(2 * (size_t)per + 15)",
+                 "round16((size_t)per + 15)", "4 * kWarps * kD",
+                 "8 * (((size_t)n_align + 3) & ~(size_t)3)"):
+        assert term in body, term
+
+
+def _split_key_model(s: np.ndarray, v: np.ndarray, cluster: int):
+    """The kernel's softmax and P.V over a cluster, in f32 numpy: each
+    rank's slice of keys, its max and sum combined in rank order, p = e /
+    sum, the partial P.V of each rank added in rank order."""
+    t = s.shape[-1]
+    per = -(-t // cluster)
+    slices = [slice(min(r * per, t), min((r + 1) * per, t))
+              for r in range(cluster)]
+    mx = np.float32(-np.inf)
+    for sl in slices:
+        if s[sl].size:
+            mx = max(mx, s[sl].max())
+    e = np.exp(s - mx).astype(np.float32)
+    total = np.float32(0)
+    for sl in slices:
+        total = np.float32(total + e[sl].sum(dtype=np.float32))
+    p = (e / total).astype(np.float32)
+    out = np.zeros(v.shape[-1], np.float32)
+    for sl in slices:
+        out += (p[sl, None] * v[sl]).sum(axis=0, dtype=np.float32)
+    return p, out
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("t", [1, 7, 1500])
+def test_split_key_softmax_matches_plain(cluster, t):
+    """Splitting the keys over the cluster's ranks (empty ranks at T < C
+    included) gives the plain softmax and P.V within the bands."""
+    rng = np.random.default_rng(t)
+    s = (rng.standard_normal(t) * 3).astype(np.float32)
+    v = rng.standard_normal((t, 64)).astype(np.float32)
+    p, out = _split_key_model(s, v, cluster)
+    rp = torch.softmax(torch.from_numpy(s), -1)
+    np.testing.assert_allclose(p, rp.numpy(), rtol=0, atol=PROBS_BAND)
+    ref = (rp[:, None] * torch.from_numpy(v)).sum(0).numpy()
+    assert np.abs(out - ref).max() <= OUT_REL_BAND * np.abs(ref).max()

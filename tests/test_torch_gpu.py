@@ -922,6 +922,144 @@ def test_decode_gemv_kernel_sums_heads_sharing_a_sel_column(gen):
     assert not bool(aligned[:, 1].any())
 
 
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_log_mel_kernel_on_silence_and_a_click(gen, n_mels, batch):
+    """The FFT kernel at 30 s on windows that reach the clamp and the
+    clip: all zeros (the 1e-10 clamp: exactly -1.5 after the clip), one
+    loud click in zeros (flat spectra in its frames, -10 elsewhere: the
+    max-8 clip holds 8 decades), and a tone in noise; within MEL_BAND of
+    the plain twin and of extract_features, one count a call."""
+    import numpy as np
+    from crisperwhisper_tpu_torch.audio.fused_mel import fused_log_mel
+    from crisperwhisper_tpu_torch.config import FeatureConfig
+    cfg = FeatureConfig(feature_size=n_mels)
+    rng = np.random.default_rng(batch)
+    audio = np.zeros((batch, cfg.n_samples), np.float32)
+    for i in range(batch):
+        if i % 3 == 1:
+            audio[i, rng.integers(0, cfg.n_samples)] = 4.0      # a click
+        elif i % 3 == 2:
+            audio[i] = testing.tone_audio(30, int(rng.integers(100)))
+    if batch == 1:
+        audio[0, cfg.n_samples // 3] = 4.0
+    before = fused_log_mel.launches
+    errs, got = testing.mel_errors(torch.from_numpy(audio).cuda(), cfg)
+    assert fused_log_mel.launches == before + 1
+    assert got.shape == (batch, n_mels, cfg.nb_max_frames)
+    assert bool(torch.isfinite(got).all())
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+    for i in range(0, batch, 3):
+        if batch > 1:
+            assert bool((got[i] == -1.5).all())
+    for i in range(1 if batch > 1 else 0, batch, 3):
+        peak = float(got[i].max())
+        assert peak - 2.0 > -1.5                    # the clip binds
+        assert float(got[i].min()) == pytest.approx(peak - 2.0, abs=1e-6)
+
+
+def test_log_mel_kernel_stamps_split_its_two_launches(gen):
+    """The stamps of one call: the FFT launch and the clip launch both
+    take time on the device and add up to the call's span; the features
+    are those of a call without stamps, bit for bit; bad stamps and a
+    shape the kernel does not take raise."""
+    import dataclasses
+    from crisperwhisper_tpu_torch.audio.fused_mel import fused_log_mel
+    from crisperwhisper_tpu_torch.config import FeatureConfig
+    cfg = FeatureConfig(feature_size=80, chunk_length=5)
+    wave = torch.from_numpy(testing.tone_audio(5, 2)[None]).cuda()
+    total, fft, clip = testing.log_mel_phases(wave, cfg)
+    assert fft > 0 and clip > 0
+    assert total == pytest.approx(fft + clip, abs=1e-9)
+    stamps = torch.tensor([-1, 0, 0], dtype=torch.int64, device="cuda")
+    assert torch.equal(fused_log_mel(wave, cfg, stamps=stamps),
+                       fused_log_mel(wave, cfg))
+    with pytest.raises(ValueError, match="stamps"):
+        fused_log_mel(wave, cfg, stamps=stamps.int())
+    with pytest.raises(ValueError, match="multiple of 4"):
+        odd = dataclasses.replace(cfg, feature_size=81, hop_length=3200)
+        fused_log_mel(torch.zeros((1, odd.n_samples), device="cuda"), odd)
+
+
+_CROSS_KEYS = [(2, 3, 1), (2, 3, 31), (4, 20, 1500), (16, 20, 1536),
+               (1, 2, 8192), (8, 20, 8192)]
+
+
+@pytest.mark.parametrize("b,h,t", _CROSS_KEYS)
+@pytest.mark.parametrize("v2", [False, True])
+def test_cross_attention_kernels_split_keys_over_the_cluster(gen, b, h, t,
+                                                            v2):
+    """v1 and v2 at key counts the cluster does not divide evenly (T = 1
+    leaves blocks empty; slices at 8192 stream through the slots) and at
+    rows x heads below (6, 80 pairs) and above (320, 160 pairs x 8) the
+    132 SMs, with a bf16 and an f32 q: out and all probabilities within
+    the bands."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    own = torch.Generator(device="cuda").manual_seed(b * 7919 + t)
+    for q_dtype in (torch.float32, torch.bfloat16):
+        q, k, ks, v, vs = testing.decode_attention_inputs((b, h, t, 64),
+                                                          "int8", own, q_dtype)
+        fn = da.cross_attention_int8_v2 if v2 else da.cross_attention_int8
+        before = fn.launches
+        errs = testing.cross_attention_errors(q[:, :, None], k,
+                                              ks[..., None], v,
+                                              vs[..., None], v2)
+        assert fn.launches == before + 1
+        for name, (err, band) in errs.items():
+            assert err <= band, (name, q_dtype, err, band)
+
+
+_SPLIT = {  # name: (cache, q dtype, [L, B, H, T], position)
+    "int8-T1": ("int8", torch.bfloat16, (2, 2, 3, 1), None),
+    "int4-T31-position-0": ("int4", torch.float32, (2, 2, 3, 31), 0),
+    "bf16-T1500": ("bf16", torch.bfloat16, (2, 4, 20, 1500), 700),
+    "f32-T1536-bf16-q": ("f32", torch.bfloat16, (2, 3, 5, 1536), None),
+    "int8-T8192": ("int8", torch.float32, (1, 2, 3, 8192), 5000),
+    "int4-T8192": ("int4", torch.bfloat16, (1, 2, 3, 8192), None),
+    "bf16-T8192-streamed": ("bf16", torch.float32, (1, 2, 3, 8192), 8191),
+    "f32-T8192-streamed": ("f32", torch.float32, (1, 2, 3, 8192), None),
+    "int8-above-132-pairs": ("int8", torch.bfloat16, (2, 16, 20, 1536), 900),
+    "f32-above-132-pairs": ("f32", torch.float32, (2, 8, 20, 448), 60),
+}
+
+
+@pytest.mark.parametrize("case", list(_SPLIT))
+def test_decode_gemv_kernel_splits_keys_over_the_cluster(gen, case):
+    """v3 for every cache kind at T = 1, 31, 1500, 1536 and 8192 (the
+    int8, bf16 and f32 slices at 8192 stream through the K/V slots),
+    rows x heads below and above 132, with scales, a position (0 where
+    given so: key 0 alone), a key mask that masks every key of row 1 (its
+    probabilities uniform) and a sel whose column 0 two heads share
+    (weights 1 and 0.5): out and the aligned rows within the bands."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    kind, q_dtype, (n, b, h, t), position = _SPLIT[case]
+    own = torch.Generator(device="cuda").manual_seed(list(_SPLIT).index(case))
+    q, k, ks, v, vs = testing.decode_attention_inputs((n, b, h, t, 64), kind,
+                                                      own, q_dtype)
+    kw = {} if kind in ("bf16", "f32") else dict(k_scale=ks, v_scale=vs)
+    if position is not None:
+        kw["position"] = position
+    m = torch.rand((b, t), generator=own, device="cuda") > 0.2
+    m[:, 0] = True
+    m[1] = False
+    s = torch.zeros((h, 4), device="cuda")
+    s[0, 0], s[h - 1, 0], s[1 % h, 2], s[2 % h, 3] = 1.0, 0.5, 1.0, 1.0
+    before = da.decode_gemv_attention.launches
+    errs = testing.decode_gemv_errors(q, k, v, n - 1, key_mask=m, sel=s, **kw)
+    assert da.decode_gemv_attention.launches == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
+    _, aligned = da.decode_gemv_attention(q, k, v, n - 1, key_mask=m, sel=s,
+                                          **kw)
+    assert not bool(aligned[:, 1].any())
+    assert torch.allclose(aligned[1, 2], torch.full_like(
+        aligned[1, 2], 1.0 / t), rtol=0, atol=testing.DA_PROBS_BAND)
+    if position == 0:
+        assert torch.equal(aligned[0, 2], torch.nn.functional.one_hot(
+            torch.tensor(0), t).float().cuda())
+
+
 def test_decode_attention_kernels_reject_what_they_do_not_take(gen):
     from crisperwhisper_tpu_torch.ops import decode_attention as da
     q, k, ks, v, vs = testing.decode_attention_inputs((2, 2, 4, 40, 64),
