@@ -73,10 +73,19 @@ Phases, one line each on stdout:
      (num_beams=4) equal to the CPU, and on one serving window with
      b1_decode_kernel (the beams mode, token agreement with the CPU at
      least 0.9); the prompting slice (prompt= text with
-     condition_on_prev_tokens) equal to the CPU;
+     condition_on_prev_tokens) equal to the CPU; the serving slice
+     (testing.serving_slice: a StreamingBatcher whose worker thread runs
+     the device batches of a 7 s and three 12 s streams, and a
+     LiveSession fed the 12 s clip in ragged blocks) on the card and on
+     the CPU: each stream's result equal to the card's pipe() of its
+     audio in text and words, timestamps within 0.02 s, finish() equal to
+     pipe(whole, adjust_pauses_threshold=0.12), partials in order and
+     prefix-stable but for the open last word, the card's results equal
+     to the CPU's;
   4. the full large-v3 geometry with random bf16 weights built on the
      card: load_pipeline answers a 60 s WAV file and a 12 s array with
-     word timestamps and adjust_pauses=0.12; every kernel's launch count
+     word timestamps and adjust_pauses=0.12, each with its wall and the
+     process's CPU seconds inside it; every kernel's launch count
      is reset just before and read just after, and must be > 0; every
      encoder-attention launch must have taken the tensor-core route; the
      alignment tail (attention_to_jump_times: align prep + DTW) of each
@@ -122,11 +131,27 @@ Phases, one line each on stdout:
      all 32 layers (sel of each layer's alignment heads) and on an int8
      self ring of 448 slots at position 60 with left pads; (d) the probe
      ladder's card rungs, in process and as
-     ``python -m crisperwhisper_tpu_torch.probe plain,probe_add``.
-Then a JSON line with one entry per kernel (launches: phase 4 for the
-first three, phases 5, 6 and 7 for the decode step, phase 6 (a) for the
-ring write, phase 8 for the other five), the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.
+     ``python -m crisperwhisper_tpu_torch.probe plain,probe_add``;
+  9. serving at large-v3 width (random bf16 weights, batch_size 8, one
+     temperature, 96 new tokens): the 60 s WAV twice and the 12 s array
+     submitted together with on_partial to (a) StreamingBatcher(pipe,
+     warmup=True) on the default path (the warmed batch sizes and their
+     seconds), (b) a batcher over quantize="serving" with
+     b1_decode_kernel (the decode step's rows mode), then a LiveSession
+     fed the 60 s WAV in 0.5 s blocks (its b1 mode); every count reset
+     just before each run and read once every stream has its result
+     (no other thread launches then). Each prints each stream's seconds
+     from submit() to result(), the first partial's time, the audio
+     seconds per wall second, the live session's seconds per window at
+     batch 1 and the token agreement with pipe() of the same audio
+     (printed, not gated: bf16), and holds well-formed results, ordered
+     prefix-stable partials and launches of kernels 1-3 (and of the
+     decode step in its mode, in (b)). A failure in a batcher's worker
+     thread reaches the smoke through result() and fails it.
+Then a JSON line with one entry per kernel (launches: phases 4 and 9 for
+the first three, phases 5, 6, 7 and 9 for the decode step, phase 6 (a)
+for the ring write, phase 8 for the other five), the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without that last line, when no CUDA card is present, when
 the port cannot be imported, or when any phase fails. Imports no JAX and,
@@ -1012,6 +1037,33 @@ def phase3_tiny(tmp: str) -> None:
           f"1), {launched} decode-step beams launches, token agreement with "
           f"the CPU {agree:.3f}", flush=True)
 
+    # serving: a batcher whose worker thread runs the device batches, and
+    # a live session fed in ragged blocks, on the card and on the CPU
+    clip = testing.tone_audio(12.0, 0)
+    gpu = testing.serving_slice(ckpt, params, "cuda", clip)
+    cpu = testing.serving_slice(ckpt, params, "cpu", clip)
+    try:
+        gap = testing.serving_gap(gpu)
+        cpu_gap = max(testing.result_gap(c, g) for c, g in zip(
+            [cpu["pipe"], cpu["live"], *cpu["streams"]],
+            [gpu["pipe"], gpu["live"], *gpu["streams"]]))
+    except AssertionError as e:
+        raise SmokeError(f"tiny serving slice: {e}") from e
+    _require(gpu["batcher_launches"] > 0,
+             "tiny serving slice: the batcher's worker launched no kernel")
+    _require(max(gap, cpu_gap) <= testing.TS_BAND,
+             f"tiny serving slice: timestamps differ by {gap} (card "
+             f"pipeline) and {cpu_gap} (CPU)")
+    print(f"phase 3 ok: tiny serving slice (StreamingBatcher, "
+          f"{len(gpu['streams'])} streams, batch 4, "
+          f"{gpu['batcher_launches']} encoder-attention launches from its "
+          f"worker thread, {sum(map(len, gpu['stream_partials']))} "
+          f"partials; LiveSession in ragged blocks, "
+          f"{len(gpu['live_partials'])} partials): streams == the card's "
+          f"pipe(), finish() == pipe(whole, adjust_pauses_threshold=0.12), "
+          f"max timestamp diff {gap:.4f} s, against the CPU "
+          f"{cpu_gap:.4f} s", flush=True)
+
 
 def _check_results(requests, results) -> None:
     """Non-empty text, word chunks with finite timestamps inside the clip,
@@ -1086,16 +1138,17 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    results, walls, tails = [], [], []
+    results, walls, tails, cpu = [], [], [], []
     longform.attention_to_jump_times = timed_tail
     try:
         for req, _ in requests:
             marks.clear()
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.process_time()
             results.append(pipe(req, return_timestamps="word",
                                 adjust_pauses_threshold=0.12))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            cpu.append(time.process_time() - c0)
             tails.append((sum(a.elapsed_time(b) for a, b in marks) / 1e3,
                           len(marks)))
     finally:
@@ -1131,7 +1184,10 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
     print(f"phase 4 ok: large-v3 bf16 random weights; requests 60 s file "
           f"{walls[0]:.2f} s wall ({len(results[0]['chunks'])} words), "
           f"12 s array {walls[1]:.2f} s wall "
-          f"({len(results[1]['chunks'])} words); peak device memory "
+          f"({len(results[1]['chunks'])} words), the process's CPU "
+          f"seconds in them {cpu[0]:.2f} and {cpu[1]:.2f} (the plain decode "
+          f"loop is host-bound: its wall follows the host's speed); peak "
+          f"device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}, encoder "
           f"attention all {counts['encoder_attention_tensor_cores']} on "
           "the tensor-core route; alignment tail (CUDA events around "
@@ -1582,6 +1638,240 @@ def phase8_remaining(tmp: str, large) -> dict[str, int]:
     return launches
 
 
+def _spy_tokens(pipe) -> dict:
+    """Replace ``pipe._run_chunks`` by a spy (undo: ``del pipe._run_chunks``)
+    and return the dict it fills: for each audio array that windows are
+    views of, in the order first seen, every window's tokens in order."""
+    inner = pipe._run_chunks
+    by_audio: dict = {}
+
+    def spy(chunks, *a, **kw):
+        out = inner(chunks, *a, **kw)
+        for c, o in zip(chunks, out):
+            base = c.samples if c.samples.base is None else c.samples.base
+            by_audio.setdefault(id(base), []).append(o["tokens"])
+        return out
+    pipe._run_chunks = spy
+    return by_audio
+
+
+def _serve(pipe, batcher, streams) -> dict:
+    """Submit ``streams`` [(request, seconds)] to ``batcher`` together,
+    every launch count reset just before and read once every stream has
+    its result: the results, each stream's seconds from its submit() to
+    its result, the first partial's seconds after the first submit(),
+    the wall from the first submit() to the last result, the partials,
+    each stream's window tokens and the launches by kernel. A failure in
+    the worker thread raises here, through result()."""
+    partials = [[] for _ in streams]
+    first: list[float] = []
+    tokens = _spy_tokens(pipe)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+
+        def on_partial(i):
+            def call(p):
+                if not first:
+                    first.append(time.perf_counter() - t0)
+                partials[i].append(p)
+            return call
+        handles, submitted = [], []
+        for i, (req, _) in enumerate(streams):
+            submitted.append(time.perf_counter())
+            handles.append(batcher.submit(req, on_partial=on_partial(i)))
+        done = [None] * len(handles)
+        while None in done:
+            _require(time.perf_counter() - t0 < 600,
+                     "serving: no result within 600 s")
+            for i, h in enumerate(handles):
+                if done[i] is None and h.done():
+                    done[i] = time.perf_counter()
+            time.sleep(0.001)
+        results = [h.result(timeout=0) for h in handles]
+        launches = _counts()
+    finally:
+        del pipe._run_chunks
+    return {"results": results, "partials": partials,
+            "latency": [d - s for d, s in zip(done, submitted)],
+            "first_partial": first[0] if first else None,
+            "wall": max(done) - t0, "tokens": list(tokens.values()),
+            "launches": launches}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def _pipe_tokens(pipe, req) -> list:
+    """Each window's tokens of ``pipe(req)``."""
+    tokens = _spy_tokens(pipe)
+    try:
+        pipe(req, return_timestamps="word")
+    finally:
+        del pipe._run_chunks
+    (toks,) = tokens.values()
+    return toks
+
+
+def _serving_line(label: str, streams, run: dict, refs: list) -> str:
+    """Checks of one ``_serve`` run (results well formed, partials in order
+    and prefix-stable, kernels 1-3 launched) and its line: latencies,
+    first partial, audio-s / wall-s, token agreement with pipe() of the
+    same audio (printed, not gated: bf16), launches."""
+    from crisperwhisper_tpu_torch import testing
+    _check_results(streams, run["results"])
+    for partials, res in zip(run["partials"], run["results"]):
+        try:
+            testing.prefix_stable(partials, res)
+        except AssertionError as e:
+            raise SmokeError(f"phase 9 ({label}): {e}") from e
+    for name in ("encoder_attention", "align_prep", "dtw"):
+        _require(run["launches"][name] > 0,
+                 f"phase 9 ({label}): kernel {name} was not launched")
+    audio_s = sum(dur for _, dur in streams)
+    agree = [testing.token_agreement(ref, got)
+             for ref, got in zip(refs, run["tokens"])]
+    first = run["first_partial"]
+    return (f"streams {[f'{d:.0f} s' for _, d in streams]}: latency "
+            f"submit->result " + ", ".join(f"{x:.3f}" for x in run["latency"])
+            + " s; first partial " + (f"{first:.3f} s" if first is not None
+                                      else "none (each stream in one batch)")
+            + f" ({sum(map(len, run['partials']))} partials); "
+            f"{audio_s:.0f} audio s in {run['wall']:.3f} s wall = "
+            f"{audio_s / run['wall']:.1f} audio-s/wall-s; token agreement "
+            f"with pipe() " + ", ".join(f"{a:.3f}" for a in agree)
+            + f"; launches {_nonzero(run['launches'])}")
+
+
+def phase9_serving(tmp: str, large, card: str) -> dict[str, int]:
+    """Serving at large-v3 width (random bf16 weights, batch_size 8, one
+    temperature, 96 new tokens, one seek pass a window): the 60 s WAV
+    twice and the 12 s array submitted together with on_partial to (a)
+    StreamingBatcher(pipe, warmup=True) on the default path, (b) a
+    batcher over load_pipeline(quantize="serving") with b1_decode_kernel
+    (the rows mode), then LiveSession on the 60 s WAV fed in 0.5 s blocks
+    (the b1 mode). Returns the launches of the three runs by kernel."""
+    import torch
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.audio.io import load_audio
+    from crisperwhisper_tpu_torch.config import PipelineOptions
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.serving import LiveSession, StreamingBatcher
+
+    t_phase = time.perf_counter()
+    arch, params = large
+    wav, arr = _large_requests(tmp)
+    streams = [wav, wav, arr]
+    totals: dict[str, int] = {}
+
+    def add(launches):
+        for name in ("encoder_attention", "align_prep", "dtw",
+                     "decode_step"):
+            totals[name] = totals.get(name, 0) + launches[name]
+
+    def make(quantize):
+        pipe = load_pipeline(_large_ckpt(tmp, arch), params=params,
+                             device="cuda", language="en", quantize=quantize,
+                             pipe_opts=PipelineOptions(
+                                 batch_size=8, return_timestamps="word"))
+        pipe.gen_opts = replace(pipe.gen_opts, temperatures=(0.0,),
+                                max_new_tokens=96,
+                                force_unique_generate_call=True,
+                                b1_decode_kernel=bool(quantize))
+        return pipe
+
+    # (a) the default path, warmed before traffic
+    pipe = make(False)
+    sizes: list[int] = []
+    real_warmup = pipe.warmup
+    pipe.warmup = lambda *a, **kw: sizes.extend(real_warmup(*a, **kw))
+    t0 = time.perf_counter()
+    batcher = StreamingBatcher(pipe, warmup=True)
+    warm_s = time.perf_counter() - t0
+    del pipe.warmup
+    _require(sizes == [1, 2, 4, 8], f"phase 9 (a): warmed sizes {sizes}")
+    try:
+        run = _serve(pipe, batcher, streams)
+    finally:
+        batcher.shutdown()
+    add(run["launches"])
+    refs = [_pipe_tokens(pipe, req) for req, _ in streams]
+    print(f"phase 9 (a): default path bf16, StreamingBatcher(warmup=True) "
+          f"warmed batch sizes {sizes} in {warm_s:.2f} s; "
+          + _serving_line("a", streams, run, refs), flush=True)
+    del pipe, batcher
+
+    # (b) quantized serving: the rows mode through a batcher ...
+    pipe = make("serving")
+    batcher = StreamingBatcher(pipe)
+    try:
+        run = _serve(pipe, batcher, streams)
+    finally:
+        batcher.shutdown()
+    add(run["launches"])
+    _require(run["launches"]["decode_step_rows"] > 0,
+             f"phase 9 (b): no rows-mode launch: {run['launches']}")
+    refs = [_pipe_tokens(pipe, req) for req, _ in streams]
+    print("phase 9 (b) rows: quantize='serving', b1_decode_kernel, "
+          "StreamingBatcher; " + _serving_line("b rows", streams, run, refs),
+          flush=True)
+
+    # ... and the b1 mode through a live session fed in 0.5 s blocks
+    audio = load_audio(wav[0], testing.SR)
+    windows: list[float] = []
+    live_toks: list = []
+    inner = pipe._run_chunks
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        windows.append(time.perf_counter() - t)
+        live_toks.extend(o["tokens"] for o in out)
+        return out
+    partials: list[dict] = []
+    first = None
+    pipe._run_chunks = timed
+    try:
+        _reset_counts()
+        sess = LiveSession(pipe, on_partial=partials.append)
+        t0 = time.perf_counter()
+        for i in range(0, len(audio), testing.SR // 2):
+            t = time.perf_counter()
+            if sess.feed(audio[i:i + testing.SR // 2]) is not None \
+                    and first is None:
+                first = time.perf_counter() - t
+        final = sess.finish()
+        live_wall = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        del pipe._run_chunks
+    add(launches)
+    _check_results([wav], [final])
+    try:
+        testing.prefix_stable(partials, final)
+    except AssertionError as e:
+        raise SmokeError(f"phase 9 (b) live: {e}") from e
+    _require(partials and first is not None, "phase 9 (b) live: no partial")
+    for name in ("encoder_attention", "align_prep", "dtw",
+                 "decode_step_b1"):
+        _require(launches[name] > 0,
+                 f"phase 9 (b) live: kernel {name} was not launched")
+    print(f"phase 9 (b) live: LiveSession on the 60 s WAV in 0.5 s blocks, "
+          f"{len(windows)} windows at batch 1: "
+          + ", ".join(f"{w:.3f}" for w in windows) + " s each (mean "
+          f"{sum(windows) / len(windows):.3f} s); first partial "
+          f"{first:.3f} s after the block that completed its window; "
+          f"{len(partials)} partials; {60.0 / live_wall:.1f} audio-s/wall-s "
+          f"fed as fast as it decodes; token agreement with pipe() "
+          f"{testing.token_agreement(refs[0], live_toks):.3f}; launches "
+          f"{_nonzero(launches)}", flush=True)
+    print(f"phase 9 ok: serving at large-v3 width in "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return totals
+
+
 def _large_params():
     import torch
     from crisperwhisper_tpu_torch.config import WhisperArch
@@ -1620,6 +1910,8 @@ def main() -> int:
             spec = phase6_speculative(tmp, large)
             launches["decode_step"] += phase7_beams_prompts(tmp, large)
             launches.update(phase8_remaining(tmp, large))
+            for name, n in phase9_serving(tmp, large, card).items():
+                launches[name] += n
         launches["decode_step"] += spec["decode_step"]
         launches["ring_write"] = spec["ring_write"]
         _require(not any(m.split(".")[0] in ("jax", "crisperwhisper_tpu")

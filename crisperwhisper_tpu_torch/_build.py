@@ -43,6 +43,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -138,9 +139,22 @@ def _build() -> tuple[Path, float, str]:
     return so, time.perf_counter() - t0, "".join(logs)  # nothing
 
 
+# held around the first build and the first lookup of each launcher: a
+# live session in the caller's thread and a batcher's worker thread can
+# make their first launch at once, and must not run nvcc twice
+_FIRST_USE = threading.RLock()
+
+
 @functools.lru_cache(maxsize=None)
 def kernels() -> Kernels:
-    """Build (if needed) and load the CUDA kernel library, once per process."""
+    """Build (if needed) and load the CUDA kernel library, once per process
+    and whatever the number of threads that ask first."""
+    with _FIRST_USE:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> Kernels:
     path, seconds, log = _build()
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -204,7 +218,8 @@ def launcher(entry: str):
     ``index``, under a device guard only when that device is not the
     current one; raises on a launch error, naming the entry without its
     ``cw_`` prefix. Built once per entry, so a call looks nothing up."""
-    fn = getattr(kernels().lib, entry)
+    with _FIRST_USE:
+        fn = getattr(kernels().lib, entry)
     name = entry.removeprefix("cw_")
     device, stream = _cuda_api()
 

@@ -154,24 +154,27 @@ def _clip_affine(log_spec: torch.Tensor) -> torch.Tensor:
 
 def fused_log_mel(waveform: torch.Tensor,
                   cfg: FeatureConfig = FeatureConfig(),
+                  dtype: torch.dtype = torch.float32,
                   stamps: torch.Tensor | None = None) -> torch.Tensor:
-    """[B, n_samples] -> [B, n_mels, n_frames] f32 log-mel features: the
-    kernel's two launches for a CUDA tensor (the plain twin for a CPU
-    tensor). Raises unless every window holds exactly ``cfg.n_samples``
+    """[B, n_samples] -> [B, n_mels, n_frames] log-mel features in
+    ``dtype`` (computed in f32, as the reference casts its input and
+    rounds only the result): the kernel's two launches for a CUDA tensor
+    (the plain twin for a CPU tensor). A waveform on the card that is not
+    contiguous f32 is cast and copied first, which costs one pass over it;
+    the kernel reads samples one f32 at a time, so any f32 storage offset
+    serves. Raises unless every window holds exactly ``cfg.n_samples``
     samples, and on the card unless n_fft is 400, the hop even and n_mels
     x n_frames a multiple of 4.
     ``stamps`` (int64 [3] on the card, holding -1, 0, 0) gets the
     %globaltimer of the first FFT block's start, the last FFT block's end
     and the last clip block's end (``testing.log_mel_phases``)."""
     if waveform.device.type == "cpu":
-        return log_mel_plain(waveform, cfg)
+        return log_mel_plain(waveform, cfg).to(dtype)
     _check(waveform, cfg)
     if waveform.device.type != "cuda":
         raise ValueError(f"fused_log_mel: unsupported device "
                          f"{waveform.device}")
-    if waveform.dtype != torch.float32 or not waveform.is_contiguous():
-        raise ValueError("fused_log_mel: the waveform must be a contiguous "
-                         f"float32 tensor on the card, got {waveform.dtype}")
+    waveform = waveform.float().contiguous()
     n_frames = cfg.n_samples // cfg.hop_length
     if cfg.n_fft != N_FFT or cfg.hop_length % 2 or (
             cfg.feature_size * n_frames % 4):
@@ -196,7 +199,7 @@ def fused_log_mel(waveform: torch.Tensor,
         peak.data_ptr(), None if stamps is None else stamps.data_ptr(), b,
         cfg.n_samples, n_frames, cfg.n_fft, cfg.hop_length, cfg.feature_size)
     fused_log_mel.launches += 1
-    return out
+    return out.to(dtype)
 
 
 fused_log_mel.launches = 0

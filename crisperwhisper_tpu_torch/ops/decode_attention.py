@@ -141,7 +141,7 @@ def cross_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor,
     return out.to(q.dtype), p[:, :, 0, :]
 
 
-def _check_cross(q, k_q, k_s, v_q, v_s) -> None:
+def _check_cross(q, k_q, k_s, v_q, v_s) -> tuple[torch.Tensor, ...]:
     qs, ks = q.shape, k_q.shape
     ok = (len(qs) == 4 and qs[2] == 1 and qs[3] == HEAD_DIM
           and q.dtype in _Q_DTYPES and len(ks) == 4 and ks[:2] == qs[:2]
@@ -156,28 +156,34 @@ def _check_cross(q, k_q, k_s, v_q, v_s) -> None:
             f"K/V [B, H, K <= {MAX_KEYS}, 64] and bf16 scales [B, H, K, 1]; "
             f"got q {q.dtype} {list(q.shape)}, K {k_q.dtype} "
             f"{list(k_q.shape)}, scales {k_s.dtype} {list(k_s.shape)}")
-    _check_card(k_q, v_q, q, k_s, v_s)
+    return _on_card(q, k_q, k_s, v_q, v_s)
 
 
-def _check_card(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
-                *others: torch.Tensor | None) -> None:
-    """Every tensor contiguous on the cache's card; q and the caches
-    16-byte aligned (the kernel copies them into shared memory by bulk
-    copies of 16-byte granules)."""
-    index = k.get_device()
-    for x in (k, v, q, *others):
-        if x is not None and (x.get_device() != index
-                              or not x.is_contiguous()):
-            raise ValueError("decode attention: every tensor must be "
-                             f"contiguous on {k.device}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError("decode attention: q and the K/V caches must "
-                         "start on a 16-byte boundary")
+def _on_card(*tensors: torch.Tensor | None) -> tuple[torch.Tensor | None,
+                                                     ...]:
+    """The tensors as the kernel reads them: each on the first one's card,
+    contiguous and starting on 16 bytes (the kernel bulk-copies q and the
+    caches into shared memory in 16-byte granules). A tensor that is not
+    gets a contiguous copy, cloned once more where its data does not start
+    on 16 bytes: a pass over that tensor. Raises when a tensor lies on
+    another device."""
+    device = tensors[0].device
+    out = []
+    for x in tensors:
+        if x is not None:
+            if x.device != device:
+                raise ValueError("decode attention: every tensor must be "
+                                 f"on {device}, got one on {x.device}")
+            x = x.contiguous()
+            if x.data_ptr() % 16:
+                x = x.clone()
+        out.append(x)
+    return tuple(out)
 
 
 def _launch_cross(entry: str, q, k_q, k_s, v_q, v_s
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    _check_cross(q, k_q, k_s, v_q, v_s)
+    q, k_q, k_s, v_q, v_s = _check_cross(q, k_q, k_s, v_q, v_s)
     b, h, _, _ = q.shape
     t = k_q.shape[2]
     out = torch.empty_like(q)
@@ -202,7 +208,9 @@ def cross_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """q [B, H, 1, D] (pre-scaled) over int8 K/V [B, H, K, D] with scales
     [B, H, K, 1] -> (out [B, H, 1, D] in q's dtype, probs [B, H, K] f32);
-    q enters the product in its own dtype."""
+    q enters the product in its own dtype. On the card, a tensor that is
+    not contiguous or does not start on 16 bytes is copied first (a pass
+    over it), and the kernel runs on the copy."""
     if _device(q, "cross_attention_int8") == "cpu":
         return cross_attention_int8_plain(q, k_q, k_s, v_q, v_s)
     res = _launch_cross("cw_cross_attention_int8", q, k_q, k_s, v_q, v_s)
@@ -218,7 +226,7 @@ def cross_attention_int8_v2(q: torch.Tensor, k_q: torch.Tensor,
                             v_s: torch.Tensor
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """``cross_attention_int8`` with q rounded to bf16 before the product
-    (the reference's v2)."""
+    (the reference's v2); inputs on the card are copied as there."""
     if _device(q, "cross_attention_int8_v2") == "cpu":
         return cross_attention_int8_plain(q, k_q, k_s, v_q, v_s,
                                           q_bf16=True)
@@ -274,7 +282,10 @@ def decode_gemv_attention(q: torch.Tensor, k_stack: torch.Tensor,
     masks the keys after it; ``key_mask`` [B, T] (bool or bytes, 0 =
     masked); ``sel`` [H, A] head weights, one-hot in use (aligned row a
     is sum_h sel[h, a] * probs[h], as in the reference). Returns out [B,
-    H, D] f32, or (out, aligned [B, A, T] f32) with ``sel``."""
+    H, D] f32, or (out, aligned [B, A, T] f32) with ``sel``. On the card,
+    a tensor that is not contiguous or does not start on 16 bytes (a
+    whole stacked cache included) is copied first, a pass over it, and the
+    kernel runs on the copy."""
     if _device(q, "decode_gemv_attention") == "cpu":
         return decode_gemv_plain(q, k_stack, v_stack, layer, k_scale,
                                  v_scale, position, key_mask, sel)
@@ -314,7 +325,8 @@ def decode_gemv_attention(q: torch.Tensor, k_stack: torch.Tensor,
                              f"got {list(sel.shape)}")
         sel = sel.float().contiguous()
         n_align = sel.shape[1]
-    _check_card(k_stack, v_stack, q, k_scale, v_scale, key_mask, sel)
+    q, k_stack, v_stack, k_scale, v_scale, key_mask, sel = _on_card(
+        q, k_stack, v_stack, k_scale, v_scale, key_mask, sel)
     out = torch.empty((b, h, HEAD_DIM), dtype=torch.float32, device=q.device)
     aligned = torch.empty((b, n_align, t), dtype=torch.float32,
                           device=q.device) if sel is not None else None

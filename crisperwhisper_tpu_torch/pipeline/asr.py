@@ -9,13 +9,14 @@ tokenizer/stitcher.py) merges the overlaps and forms the words. An
 assistant makes the greedy windows speculative (decoding/assisted.py).
 
 ``Chunk``, ``chunk_iter`` and ``specials_from_tokenizer`` are verbatim
-copies of the originals (tests/test_torch_pipeline.py pins them).
+copies of the originals, and ``ASRPipeline.warmup`` has the original's
+code (tests/test_torch_pipeline.py pins them). Each call's audio and wall
+seconds go to ``pipe.meter`` (utils/tracing.RTFMeter, the reference's);
+serving/ batches many streams over ``_run_chunks``.
 """
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Iterable, Sequence
 
@@ -31,6 +32,7 @@ from ..tokenizer.whisper_tokenizer import WhisperTokenizer
 from ..audio.io import load_audio
 from ..audio.mel import extract_features
 from ..decoding.longform import generate
+from ..utils.tracing import RTFMeter
 
 
 @dataclass
@@ -60,20 +62,6 @@ def chunk_iter(audio: np.ndarray, audio_idx: int, n_samples: int,
             break
 
 
-class WallMeter:
-    """Wall-clock seconds and audio seconds of each pipeline call (the
-    real-time factor of a call is audio_s / wall_s)."""
-
-    def __init__(self) -> None:
-        self.history: list[tuple[float, float]] = []   # (audio_s, wall_s)
-
-    @contextmanager
-    def measure(self, audio_s: float):
-        t0 = time.perf_counter()
-        yield
-        self.history.append((audio_s, time.perf_counter() - t0))
-
-
 class ASRPipeline:
     """``pipe(audio, return_timestamps="word")``, the equivalent of
     ref:transcribe.py:21-33. ``params`` live on one device; every batch
@@ -100,10 +88,34 @@ class ASRPipeline:
             feature_size=arch.num_mel_bins)
         self.assistant = assistant
         self.device = params["decoder"]["tok_emb"].device
-        self.meter = WallMeter()
+        self.meter = RTFMeter()
         # auto language detection for multilingual checkpoints when no
         # language is pinned (hf _retrieve_init_tokens :1560-1590)
         self.detect_language = False
+
+    def warmup(self, return_timestamps: str | bool = "word") -> list[int]:
+        """Run one batch of silent windows at every batch size that
+        ``_run_chunks`` can form (the powers of 2 below batch_size, then
+        batch_size) before traffic arrives, and return those sizes. On the
+        card, this is where the CUDA kernel library gets built (nvcc on
+        the first call of a process), cuBLAS creates its handle and
+        workspaces for each batch's shapes, and the caching allocator's
+        pool grows to a batch's working set, so that no request pays for
+        them. The outputs are discarded."""
+        bs = self.pipe_opts.batch_size
+        n_samples = int(round(self.pipe_opts.chunk_length_s
+                              * self.feat_cfg.sampling_rate))
+        sizes, s = [], 1
+        while s < bs:
+            sizes.append(s)
+            s <<= 1
+        sizes.append(bs)
+        zeros = np.zeros((n_samples,), np.float32)
+        for s in sizes:
+            chunks = [Chunk(0, zeros, (n_samples, 0, 0), i == s - 1)
+                      for i in range(s)]
+            self._run_chunks(chunks, n_samples, return_timestamps)
+        return sizes
 
     def __call__(self, inputs: Any, return_timestamps: str | bool | None
                  = None, adjust_pauses_threshold: float | None = None,
@@ -143,7 +155,7 @@ class ASRPipeline:
             chunks.extend(chunk_iter(audio, idx, n_samples, stride_left,
                                      stride_right))
 
-        with self.meter.measure(total_audio_s):
+        with self.meter.measure(total_audio_s, "pipeline"):
             chunk_outputs = self._run_chunks(chunks, n_samples,
                                              return_timestamps,
                                              prompt=prompt)

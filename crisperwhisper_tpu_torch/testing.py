@@ -948,3 +948,111 @@ def slice_timestamp_gap(ref: tuple[dict, list[np.ndarray]],
     return max((abs(x - y) for a, b in zip(r["chunks"], g["chunks"])
                 for x, y in zip(a["timestamp"], b["timestamp"])),
                default=0.0)
+
+
+def result_gap(ref: dict, got: dict) -> float:
+    """Largest word-timestamp gap between two pipeline results. Raises
+    AssertionError when their text or words differ, or when ``ref`` has
+    no words."""
+    if got["text"] != ref["text"]:
+        raise AssertionError(f"text differs: {got['text']!r} vs "
+                             f"{ref['text']!r}")
+    if [c["text"] for c in got["chunks"]] != [c["text"]
+                                              for c in ref["chunks"]]:
+        raise AssertionError("words differ")
+    if not ref["chunks"]:
+        raise AssertionError("no words")
+    return max(abs(x - y) for a, b in zip(ref["chunks"], got["chunks"])
+               for x, y in zip(a["timestamp"], b["timestamp"]))
+
+
+def serving_slice(ckpt: str, params, device: str, audio: np.ndarray
+                  ) -> dict:
+    """The TINY f32 serving slice on ``device`` at batch size 4 and one
+    temperature. "pipe" and "pipe_adjusted": the pipeline's own results
+    for ``audio`` (adjust_pauses 0.12 in the second); "requests": a 7 s
+    prefix of ``audio``, then ``audio`` three times, submitted together
+    to a StreamingBatcher with on_partial (the prefix's windows do not
+    fill a batch, so each later stream straddles two batches and gets a
+    partial), "refs" the pipeline's results for them, "streams" the
+    batcher's and "stream_partials" their partials, "batcher_launches"
+    the encoder-attention launches made while the worker thread ran
+    them; "live": a LiveSession fed ``audio`` in ragged blocks (seeded)
+    with adjust_pauses 0.12, "live_partials" its partials."""
+    from dataclasses import replace
+    from .config import PipelineOptions
+    from .hub import load_pipeline
+    from .ops.fused_attention import fused_attention
+    from .serving import LiveSession, StreamingBatcher
+    po = PipelineOptions(chunk_length_s=CHUNK_S, batch_size=4,
+                         return_timestamps="word")
+    pipe = load_pipeline(ckpt, dtype=torch.float32, device=device,
+                         params=to_device(params, device), pipe_opts=po)
+    pipe.gen_opts = replace(pipe.gen_opts, temperatures=(0.0,))
+    clips = [audio[:7 * SR]] + [audio] * 3
+
+    def request(x):
+        return {"raw": x, "sampling_rate": SR}
+    out = {"pipe": pipe(request(audio), return_timestamps="word"),
+           "pipe_adjusted": pipe(request(audio), return_timestamps="word",
+                                 adjust_pauses_threshold=0.12)}
+    out["refs"] = [pipe(request(clips[0]), return_timestamps="word")] + [
+        out["pipe"]] * 3
+    partials = [[] for _ in clips]
+    before = fused_attention.launches
+    batcher = StreamingBatcher(pipe, max_batch_delay_s=0.01)
+    try:
+        handles = [batcher.submit(request(x), on_partial=p.append)
+                   for x, p in zip(clips, partials)]
+        out["streams"] = [h.result(timeout=600) for h in handles]
+        out["batcher_launches"] = fused_attention.launches - before
+    finally:
+        batcher.shutdown()
+    out["stream_partials"] = partials
+    live = []
+    sess = LiveSession(pipe, adjust_pauses_threshold=0.12,
+                       on_partial=live.append)
+    rng = np.random.default_rng(5)
+    i = 0
+    while i < len(audio):
+        n = int(rng.integers(1000, 40000))
+        sess.feed(audio[i:i + n])
+        i += n
+    out["live"] = sess.finish()
+    out["live_partials"] = live
+    return out
+
+
+def prefix_stable(partials: list[dict], final: dict) -> None:
+    """Partials in order, each one's words but the open last one a prefix
+    of ``final``'s; raises AssertionError."""
+    ns = [p["n_chunks_done"] for p in partials]
+    if ns != sorted(ns) or not all(p["is_partial"] for p in partials):
+        raise AssertionError(f"partials out of order: {ns}")
+    words = [(c["text"], c["timestamp"]) for c in final["chunks"]]
+    for p in partials:
+        got = [(c["text"], c["timestamp"]) for c in p["chunks"]][:-1]
+        if got != words[:len(got)]:
+            raise AssertionError(f"partial {p['n_chunks_done']} is not a "
+                                 "prefix of the final words")
+
+
+def serving_gap(out: dict) -> float:
+    """Checks of one ``serving_slice``: each stream's result against the
+    pipeline's for the same audio (text and words equal), ``finish()``
+    equal to the pause-adjusted pipeline result exactly, partials (some
+    from the batcher, some from the session) ordered and prefix-stable
+    except the open last word. Returns the largest word gap of the
+    streams against the pipeline; raises AssertionError."""
+    if out["live"] != out["pipe_adjusted"]:
+        raise AssertionError("LiveSession.finish() differs from "
+                             "pipe(whole, adjust_pauses_threshold=0.12)")
+    if not out["live_partials"] or not any(out["stream_partials"]):
+        raise AssertionError("no live partials")
+    prefix_stable(out["live_partials"], out["pipe"])
+    gap = 0.0
+    for ref, res, partials in zip(out["refs"], out["streams"],
+                                  out["stream_partials"]):
+        gap = max(gap, result_gap(ref, res))
+        prefix_stable(partials, res)
+    return gap

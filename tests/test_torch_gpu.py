@@ -304,6 +304,27 @@ def test_tiny_slice_on_card_matches_cpu(gen, tmp_path):
     assert testing.slice_timestamp_gap(cpu, gpu) <= testing.TS_BAND
 
 
+def test_streaming_batcher_and_live_session_on_card(gen, tmp_path):
+    """The TINY serving slice on the card (testing.serving_slice): a
+    StreamingBatcher whose worker thread runs the device batches (and
+    launches the encoder-attention kernel) gives each stream the card
+    pipeline's own result, with ordered, prefix-stable partials;
+    LiveSession.finish() equals pipe(whole, adjust_pauses_threshold=0.12)
+    on the card; the card pipeline's result is the CPU's."""
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    params = init_params(WhisperArch(**testing.TINY),
+                         torch.Generator().manual_seed(0))
+    audio = testing.tone_audio(12.0, 0)
+    gpu = testing.serving_slice(ckpt, params, "cuda", audio)
+    assert gpu["batcher_launches"] > 0
+    assert testing.serving_gap(gpu) <= testing.TS_BAND
+    cpu = testing.serving_slice(ckpt, params, "cpu", audio)
+    assert testing.result_gap(cpu["pipe"], gpu["pipe"]) <= testing.TS_BAND
+    assert testing.result_gap(cpu["live"], gpu["live"]) <= testing.TS_BAND
+
+
 def test_tiny_float16_pipeline_on_card(gen, tmp_path):
     """load_pipeline(dtype=torch.float16) answers a request on the card
     with word timestamps, its encoder attention on the tensor-core route."""
@@ -806,17 +827,50 @@ def test_log_mel_kernel_matches_plain_and_stft(gen, n_mels, seconds, batch):
 
 
 def test_log_mel_kernel_rejects_what_it_does_not_take(gen):
+    """A window of another length raises; an f64 or a transposed waveform
+    is cast and copied, and gives the features of its contiguous f32
+    copy."""
     from crisperwhisper_tpu_torch.audio.fused_mel import fused_log_mel
     from crisperwhisper_tpu_torch.config import FeatureConfig
     cfg = FeatureConfig(chunk_length=5)
     with pytest.raises(ValueError):
         fused_log_mel(torch.zeros((1, cfg.n_samples - 1), device="cuda"),
                       cfg)
-    with pytest.raises(ValueError):
-        fused_log_mel(torch.zeros((1, cfg.n_samples), device="cuda",
-                                  dtype=torch.float64), cfg)
-    with pytest.raises(ValueError):
-        fused_log_mel(torch.zeros((cfg.n_samples, 2), device="cuda").T, cfg)
+    wave = torch.from_numpy(testing.tone_audio(5, 3)[None]).cuda()
+    want = fused_log_mel(wave, cfg)
+    assert torch.equal(fused_log_mel(wave.double(), cfg), want)
+    assert torch.equal(fused_log_mel(wave.T.contiguous().T, cfg), want)
+
+
+def test_log_mel_kernel_takes_any_waveform_layout_and_dtype(gen):
+    """A bf16 waveform, a strided view, a view whose data does not start
+    on 16 bytes and ``dtype=torch.bfloat16``: each runs the kernel (one
+    count a call) on a cast copy, within MEL_BAND of the plain twin on
+    the same input (a bf16 out within one bf16 epsilon more)."""
+    from crisperwhisper_tpu_torch.audio.fused_mel import (fused_log_mel,
+                                                          log_mel_plain)
+    from crisperwhisper_tpu_torch.config import FeatureConfig
+    cfg = FeatureConfig(feature_size=128)
+    audio = torch.from_numpy(__import__("numpy").stack(
+        [testing.tone_audio(30, s) for s in (4, 5)])).cuda()
+    wide = torch.zeros((2, 2 * cfg.n_samples), device="cuda")
+    wide[:, ::2] = audio
+    flat = torch.zeros(2 * cfg.n_samples + 1, device="cuda")
+    flat[1:] = audio.reshape(-1)
+    offset = flat[1:].view(2, cfg.n_samples)
+    assert offset.data_ptr() % 16 and not wide[:, ::2].is_contiguous()
+    for wave in (audio.bfloat16(), wide[:, ::2], offset):
+        before = fused_log_mel.launches
+        errs, got = testing.mel_errors(wave, cfg)
+        assert fused_log_mel.launches == before + 1
+        assert got.dtype == torch.float32
+        for name, (err, band) in errs.items():
+            assert err <= band, (wave.dtype, name, err, band)
+    got = fused_log_mel(audio, cfg, dtype=torch.bfloat16)
+    ref = log_mel_plain(audio, cfg)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    eps = torch.finfo(torch.bfloat16).eps * ref.abs().max().item()
+    assert (got.float() - ref).abs().max().item() <= testing.MEL_BAND + eps
 
 
 @pytest.mark.parametrize("b,h,t,q_dtype", [
@@ -1068,9 +1122,9 @@ def test_decode_attention_kernels_reject_what_they_do_not_take(gen):
         da.decode_gemv_attention(q, k, v, 2)
     with pytest.raises(ValueError):               # one scale without other
         da.decode_gemv_attention(q, k, v, 0, k_scale=ks)
-    with pytest.raises(ValueError):               # strided cache
-        da.decode_gemv_attention(q, k.transpose(3, 4).contiguous()
-                                 .transpose(3, 4), v, 0)
+    strided = k.transpose(3, 4).contiguous().transpose(3, 4)
+    assert torch.equal(da.decode_gemv_attention(q, strided, v, 0),
+                       da.decode_gemv_attention(q, k, v, 0))
     with pytest.raises(ValueError):               # head dim 32
         da.decode_gemv_attention(q[..., :32].contiguous(),
                                  k[..., :32].contiguous(),
@@ -1078,6 +1132,53 @@ def test_decode_attention_kernels_reject_what_they_do_not_take(gen):
     with pytest.raises(ValueError):               # a bf16 cache for v1
         da.cross_attention_int8(q[:, :, None], k[0].bfloat16(),
                                 ks[0, ..., None], v[0], vs[0, ..., None])
+    with pytest.raises(ValueError, match="on cuda"):  # K on the host
+        da.decode_gemv_attention(q, k.cpu(), v, 0)
+
+
+def _offset(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s values in a view whose data starts one element past a
+    16-byte boundary (a slice of a larger tensor)."""
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    out = flat[1:].view(x.shape)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernels_take_offset_and_strided_inputs(gen,
+                                                                q_dtype):
+    """An offset q (a slice of a larger tensor, not on 16 bytes) and K/V
+    caches that are not contiguous, through each of the three entries:
+    each runs its kernel once (on copies) and stays within the bands of
+    its plain twin."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    q, k, ks, v, vs = testing.decode_attention_inputs((2, 4, 20, 1500, 64),
+                                                      "int8", gen, q_dtype)
+
+    def strided(x):
+        return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    k_s, v_s = strided(k), strided(v)
+    assert not k_s.is_contiguous() and not v_s.is_contiguous()
+    for v2, fn in ((False, da.cross_attention_int8),
+                   (True, da.cross_attention_int8_v2)):
+        before = fn.launches
+        errs = testing.cross_attention_errors(
+            _offset(q[:, :, None]), k_s[1], ks[1, ..., None], v_s[1],
+            vs[1, ..., None], v2)
+        assert fn.launches == before + 1
+        for name, (err, band) in errs.items():
+            assert err <= band, (v2, name, err, band)
+    sel = torch.zeros((20, 15), device="cuda")
+    for a in range(15):
+        sel[a % 20, a] = 1.0
+    before = da.decode_gemv_attention.launches
+    errs = testing.decode_gemv_errors(_offset(q), k_s, v_s, 1, k_scale=ks,
+                                      v_scale=vs, sel=sel, position=900)
+    assert da.decode_gemv_attention.launches == before + 1
+    for name, (err, band) in errs.items():
+        assert err <= band, (name, err, band)
 
 
 def test_probe_ladder_on_card(gen, capsys):

@@ -32,6 +32,14 @@ import crisperwhisper_tpu_torch.tokenizer
 import crisperwhisper_tpu_torch.pipeline.pauses
 import crisperwhisper_tpu_torch.config
 import crisperwhisper_tpu_torch.testing
+import crisperwhisper_tpu_torch.serving
+import crisperwhisper_tpu_torch.serving.batcher
+import crisperwhisper_tpu_torch.serving.live
+import crisperwhisper_tpu_torch.utils.tracing
+import crisperwhisper_tpu_torch.utils.evaluation
+import crisperwhisper_tpu_torch.tokenizer.normalizers
+import crisperwhisper_tpu_torch.tokenizer.number_normalizer
+import crisperwhisper_tpu_torch.app
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "crisperwhisper_tpu"))
 print(",".join(loaded))

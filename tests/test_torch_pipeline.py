@@ -284,6 +284,17 @@ def test_build_prompt_matches_jax(kw):
                                   jbp(TINY_SPECIALS, 3, **kw))
 
 
+class _ByCode:
+    """A copy pinned by its statements: the whole module (``names`` None)
+    or the classes and functions named (dotted, e.g. "Class.method")."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def __repr__(self):
+        return f"by_code{list(self.names or ())}"
+
+
 @pytest.mark.parametrize("orig,port,names", [
     ("crisperwhisper_tpu.decoding.segments",
      "crisperwhisper_tpu_torch.decoding.segments",
@@ -304,15 +315,36 @@ def test_build_prompt_matches_jax(kw):
                 "tokenizer.whisper_tokenizer", "tokenizer.words",
                 "tokenizer.stitcher", "pipeline.pauses", "native_bindings")],
     ("native/cwtpu.cpp", "crisperwhisper_tpu_torch/csrc/cwtpu.cpp", None),
+    *[(f"crisperwhisper_tpu.{m}", f"crisperwhisper_tpu_torch.{m}", None)
+      for m in ("tokenizer.normalizers", "tokenizer.number_normalizer",
+                "utils.evaluation")],
+    ("crisperwhisper_tpu.app", "crisperwhisper_tpu_torch.app",
+     ["process_audio_bytes", "_fmt_ts", "timestamps_to_vtt",
+      "transcript_html", "wav_to_black_mp4", "build_app_pipeline"]),
+    # copies whose docstrings and comments are the port's own: the same
+    # statements, compared as syntax trees
+    *[(f"crisperwhisper_tpu.{m}", f"crisperwhisper_tpu_torch.{m}",
+       _ByCode(names))
+      for m, names in (("serving.batcher", None), ("serving.live", None),
+                       ("utils.tracing", ("StageStats", "RTFMeter")),
+                       ("pipeline.asr", ("ASRPipeline.warmup",)))],
 ])
 def test_verbatim_copies_match_originals(orig, port, names):
     """Functions copied into port modules have the originals' source; a
     module the port carries whole has the original's source apart from
     its import statements (and, for native_bindings, the build path of
-    its library); the C++ helper is the same file byte for byte."""
+    its library); the C++ helper is the same file byte for byte. A copy
+    pinned by code (``_ByCode``: a whole module, or its classes and
+    functions by dotted name) has the original's syntax tree once import
+    statements and docstrings are taken out of both, so that only
+    comments and docstrings may differ."""
     import importlib
     if orig.endswith(".cpp"):
         assert _read(port, "rb") == _read(orig, "rb")
+        return
+    if isinstance(names, _ByCode):
+        for name in names.names or (None,):
+            assert _code(port, name) == _code(orig, name), name
         return
     if names is None:
         assert _body(port) == _body(orig)
@@ -351,6 +383,30 @@ def _body(module: str) -> list[str]:
                 (names & _BUILD_PATH and node.col_offset == 0):
             cut.update(range(node.lineno - 1, node.end_lineno))
     return [ln for i, ln in enumerate(src.splitlines()) if i not in cut]
+
+
+def _code(module: str, name: str | None) -> str:
+    """``ast.dump`` of a module (``name`` None) or of its class or function
+    ``name`` (dotted through classes), without import statements or
+    docstrings at any depth."""
+    import ast
+    tree = ast.parse(_read(module.replace(".", "/") + ".py"))
+    for part in name.split(".") if name else ():
+        tree = next(n for n in tree.body if isinstance(
+            n, (ast.ClassDef, ast.FunctionDef)) and n.name == part)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if not isinstance(body, list):
+            continue
+        body = [n for n in body
+                if not isinstance(n, (ast.Import, ast.ImportFrom))]
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body = body[1:]
+        node.body = body
+    return ast.dump(tree)
 
 
 def _dir_bytes(path):
