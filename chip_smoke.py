@@ -147,10 +147,31 @@ Phases, one line each on stdout:
      (printed, not gated: bf16), and holds well-formed results, ordered
      prefix-stable partials and launches of kernels 1-3 (and of the
      decode step in its mode, in (b)). A failure in a batcher's worker
-     thread reaches the smoke through result() and fails it.
-Then a JSON line with one entry per kernel (launches: phases 4 and 9 for
-the first three, phases 5, 6, 7 and 9 for the decode step, phase 6 (a)
-for the ring write, phase 8 for the other five), the card's name and
+     thread reaches the smoke through result() and fails it;
+ 10. the full-sequence, auxiliary, short-form, checkpoint and progress
+     entry points at large-v3 width (random bf16 weights) on the 4 rows
+     ASRPipeline cuts from the 60 s WAV (3 windows and a padding row),
+     every count reset just before each part and read just after: (a)
+     forward on 96 decoder ids (the prompt and the seek loop's tokens for
+     those windows) against decode_step fed the same ids one by one: top-1
+     agreement at least 0.9 and the largest logit difference at most
+     1e-3 on f32 weights (phase 2 turned TF32 off), the agreement and the
+     difference at bf16 printed beside them, every encoder-attention launch on the tensor cores; (b)
+     audio_classification_forward with a random 16-label head: finite
+     [4, 16] f32 logits; (c) generate_short_form with word timestamps:
+     kernels 1-3 launched, timestamps non-decreasing over each row's
+     prompt and tokens, its wall and the process's CPU seconds; (d) the
+     same on fused group-wise int4 weights with b1_decode_kernel: kernels
+     1-3 launched, the decode-step kernel not (its gate takes int8 weights
+     only), the token agreement with (c) printed; (e) the first 4 layers
+     of each stack through save_hf_checkpoint -> load_params(device=
+     "cuda") and, fused int8 and int4, save_params -> load_saved_params(
+     device="cuda"): every leaf back bit-equal with its dtype, bytes and
+     seconds printed; (f) generate(monitor_progress=...) on the 60 s WAV's
+     features: one call a seek pass, seek non-decreasing below max_frames.
+Then a JSON line with one entry per kernel (launches: phases 4, 9 and 10
+for the first three, phases 5, 6, 7 and 9 for the decode step, phase 6
+(a) for the ring write, phase 8 for the other five), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without that last line, when no CUDA card is present, when
@@ -1872,6 +1893,258 @@ def phase9_serving(tmp: str, large, card: str) -> dict[str, int]:
     return totals
 
 
+def phase10_entry_points(tmp: str, large, card: str) -> dict[str, int]:
+    """The full-sequence, auxiliary, short-form, checkpoint and progress
+    entry points at large-v3 width (random bf16 weights) on the 4 windows
+    ASRPipeline cuts from the 60 s WAV, every count reset just before each
+    part and read just after. Returns the launches of kernels 1-3."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.audio.io import load_audio
+    from crisperwhisper_tpu_torch.audio.mel import extract_features
+    from crisperwhisper_tpu_torch.decoding import longform
+    from crisperwhisper_tpu_torch.decoding.generate import (
+        build_prompt, generate_short_form)
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.models import quantize as Q
+    from crisperwhisper_tpu_torch.models.loader import (load_params,
+                                                        save_hf_checkpoint)
+    from crisperwhisper_tpu_torch.models.whisper import (
+        audio_classification_forward, decode_step, encode, forward,
+        init_cache, init_classification_head)
+    from crisperwhisper_tpu_torch.utils.checkpoint import (load_saved_params,
+                                                           save_params)
+
+    t_phase = time.perf_counter()
+    arch, params = large
+    pipe = load_pipeline(_large_ckpt(tmp, arch), params=params, device="cuda",
+                         language="en")
+    opts = replace(pipe.gen_opts, max_new_tokens=96, temperatures=(0.0,),
+                   force_unique_generate_call=True)
+    specials = pipe.specials
+    (wav, _), _ = _large_requests(tmp)
+    batch, n_windows = _pipeline_windows(pipe, wav)
+    feats = extract_features(batch, pipe.feat_cfg)
+    rows = feats.shape[0]
+    lang = pipe._language_token()
+    prompt = build_prompt(specials, rows, language_token=lang,
+                          return_timestamps=opts.return_timestamps,
+                          forced_tokens=opts.forced_tokens)
+    totals: dict[str, int] = {}
+    main_path = ("encoder_attention", "align_prep", "dtw")
+
+    def part(label: str, kernels: tuple[str, ...], fn):
+        """fn() with every count reset just before and read just after:
+        (its result, the counts, wall seconds, the process's CPU
+        seconds)."""
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+        counts = _counts()
+        for k in kernels:
+            _require(counts[k] > 0, f"phase 10 ({label}): kernel {k} was "
+                                    "not launched")
+        for k in main_path:
+            totals[k] = totals.get(k, 0) + counts[k]
+        return out, counts, wall, cpu
+
+    # (a) forward on 96 ids: the prompt and what the seek loop produced
+    gen = longform.generate(params, arch, specials, opts, feats,
+                            language_token=lang)
+    ids = np.full((rows, 96), specials.eot, np.int64)
+    for r in range(rows):
+        row = np.concatenate([prompt[r], gen.sequences[r]])[:96]
+        ids[r, :len(row)] = row
+    ids = torch.from_numpy(ids).cuda()
+
+    def stepwise(p):
+        """decode_step fed the same ids one by one: logits [B, 96, V]."""
+        cache = init_cache(p, arch, encode(p, arch, feats), cache_len=96)
+        steps = []
+        for t in range(96):
+            logits, cache, _ = decode_step(p, arch, ids[:, t], t, cache)
+            steps.append(logits)
+        return torch.stack(steps, 1)
+
+    logits, counts, wall_a, _ = part("a", ("encoder_attention",),
+                                     lambda: forward(params, arch, feats, ids))
+    _require(counts["encoder_attention_tensor_cores"]
+             == counts["encoder_attention"],
+             f"phase 10 (a): encoder attention left the tensor-core route: "
+             f"{counts}")
+    _require(tuple(logits.shape) == (rows, 96, arch.vocab_size)
+             and bool(torch.isfinite(logits).all()),
+             f"phase 10 (a): forward logits {tuple(logits.shape)} not finite")
+    ref = stepwise(params)
+    agree16 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    gap16 = (logits - ref).abs().max().item()
+    del logits, ref
+    p32 = testing.to_device(params, torch.float32)
+    logits = forward(p32, arch, feats, ids)
+    ref = stepwise(p32)
+    agree32 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    gap32 = (logits - ref).abs().max().item()
+    del logits, ref, p32
+    torch.cuda.empty_cache()
+    _require(agree32 >= 0.9, f"phase 10 (a): forward and decode_step agree "
+                             f"on {agree32} of the top-1 tokens at f32")
+    # Measured 8.151e-06 on an NVIDIA H100 80GB HBM3 at 700.00 W; the bound
+    # leaves two orders of magnitude and catches a fault at a few positions.
+    _require(gap32 <= 1e-3, f"phase 10 (a): forward and decode_step differ "
+                            f"by {gap32} in a logit at f32 (bound 1e-3)")
+    print(f"phase 10 (a): forward on the {n_windows} windows ASRPipeline "
+          f"cuts from the 60 s WAV (batch {rows}) and 96 decoder ids (the "
+          f"prompt and the seek loop's tokens): {wall_a:.3f} s wall at bf16; "
+          f"top-1 agreement with decode_step fed the same ids {agree32:.4f} "
+          f"at f32 (band 0.9), {agree16:.4f} at bf16 (informative); largest "
+          f"logit difference {gap32:.4g} at f32 (bound 1e-3), {gap16:.4g} at "
+          f"bf16; "
+          f"launches encoder_attention {counts['encoder_attention']}, all on "
+          "the tensor cores", flush=True)
+
+    # (b) audio classification with a random 16-label head
+    head = init_classification_head(
+        arch, 16, torch.Generator(device="cuda").manual_seed(10),
+        device="cuda")
+    cls, counts, wall_b, _ = part(
+        "b", ("encoder_attention",),
+        lambda: audio_classification_forward(params, arch, feats, head))
+    _require(tuple(cls.shape) == (rows, 16) and cls.dtype == torch.float32
+             and bool(torch.isfinite(cls).all()),
+             f"phase 10 (b): logits {tuple(cls.shape)} {cls.dtype}")
+    print(f"phase 10 (b): audio_classification_forward, 16 labels: "
+          f"{wall_b:.3f} s wall, logits {list(cls.shape)} finite; launches "
+          f"encoder_attention {counts['encoder_attention']}", flush=True)
+
+    # (c) short-form generation with word timestamps, (d) the same on
+    # group-wise int4 weights (the decode-step kernel's gate refuses them)
+    def short_form(p, o):
+        return generate_short_form(p, arch, specials, o, feats, prompt=prompt)
+
+    def monotone(out) -> bool:
+        return all(bool(np.all(np.diff(out.token_timestamps[
+            r, :prompt.shape[1] + int(out.num_generated[r])]) >= 0))
+            for r in range(rows))
+
+    sf, counts, wall_c, cpu_c = part("c", main_path,
+                                     lambda: short_form(params, opts))
+    _require(monotone(sf), "phase 10 (c): token timestamps decrease: "
+                           f"{sf.token_timestamps}")
+    print(f"phase 10 (c): generate_short_form with word timestamps: "
+          f"{wall_c:.3f} s wall, the process's CPU seconds in it "
+          f"{cpu_c:.3f}; tokens generated {sf.num_generated.tolist()}; "
+          f"timestamps non-decreasing; launches "
+          f"{_nonzero({k: counts[k] for k in main_path})}", flush=True)
+    q4 = Q.quantize_decoder_weights(Q.fuse_decoder_qkv(params, arch.head_dim),
+                                    bits=4)
+    sf4, counts, wall_d, _ = part(
+        "d", main_path,
+        lambda: short_form(q4, replace(opts, b1_decode_kernel=True)))
+    _require(counts["decode_step"] == 0,
+             f"phase 10 (d): the decode-step kernel ran on int4 weights: "
+             f"{counts['decode_step']}")
+    _require(monotone(sf4), "phase 10 (d): token timestamps decrease")
+    print(f"phase 10 (d): the same on fused group-wise int4 weights with "
+          f"b1_decode_kernel: {wall_d:.3f} s wall; token agreement with (c) "
+          f"{testing.token_agreement(list(sf.sequences), list(sf4.sequences)):.3f}"
+          f" (random weights, informative); decode_step launches "
+          f"{counts['decode_step']}; launches "
+          f"{_nonzero({k: counts[k] for k in main_path})}", flush=True)
+    del q4
+
+    # (e) checkpoints of the first 4 layers of each stack at full width
+    small = {stack: {**params[stack], "layers": params[stack]["layers"][:4]}
+             for stack in ("encoder", "decoder")}
+    arch4 = replace(arch, encoder_layers=len(small["encoder"]["layers"]),
+                    decoder_layers=len(small["decoder"]["layers"]))
+    lines = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def size(path: str) -> int:
+        return sum(os.path.getsize(os.path.join(path, n))
+                   for n in os.listdir(path))
+
+    d = os.path.join(tmp, "export")
+    _, save_s = timed(lambda: save_hf_checkpoint(d, small, arch4))
+    (back, _), load_s = timed(lambda: load_params(d, dtype=torch.bfloat16,
+                                                  device="cuda"))
+    bad = testing.tree_mismatch(small, back, "cuda")
+    _require(not bad, f"phase 10 (e): HF export round trip differs at {bad}")
+    lines.append(f"save_hf_checkpoint -> load_params bf16: {size(d)} bytes, "
+                 f"{save_s:.2f} s + {load_s:.2f} s")
+    shutil.rmtree(d)
+    for kind, tree in (("fused int8", lambda: Q.quantize_decoder_weights(
+                            Q.fuse_decoder_qkv(small, arch.head_dim))),
+                       ("int4", lambda: Q.quantize_decoder_weights(
+                            small, bits=4))):
+        tree = tree()
+        d = os.path.join(tmp, "saved")
+        _, save_s = timed(lambda: save_params(d, tree, {"kind": kind}))
+        (back, meta), load_s = timed(lambda: load_saved_params(
+            d, device="cuda"))
+        bad = testing.tree_mismatch(tree, back, "cuda")
+        _require(not bad and meta == {"kind": kind},
+                 f"phase 10 (e): {kind} round trip differs at {bad}")
+        lines.append(f"save_params -> load_saved_params {kind}: "
+                     f"{size(d)} bytes, {save_s:.2f} s + {load_s:.2f} s")
+        shutil.rmtree(d)
+    del small, back, tree
+    print(f"phase 10 (e): 4 layers a stack at large-v3 width, every leaf "
+          f"back on the card bit-equal with its dtype: " + "; ".join(lines),
+          flush=True)
+
+    # (f) the seek loop's progress on the 60 s WAV's features
+    audio = load_audio(wav, testing.SR)
+    cfg60 = replace(pipe.feat_cfg,
+                    chunk_length=len(audio) // testing.SR)
+    feats60 = extract_features(
+        torch.from_numpy(audio[None, :cfg60.n_samples]).cuda(), cfg60)
+    seen: list[np.ndarray] = []
+    passes = []
+    real_window = longform._decode_window
+
+    def counted(*a, **kw):
+        passes.append(1)
+        return real_window(*a, **kw)
+
+    longform._decode_window = counted
+    try:
+        _, _, wall_f, _ = part("f", main_path, lambda: longform.generate(
+            params, arch, specials, replace(opts,
+                                            force_unique_generate_call=False),
+            feats60, language_token=lang, monitor_progress=seen.append))
+    finally:
+        longform._decode_window = real_window
+    seeks = [int(a[0, 0]) for a in seen]
+    frames = feats60.shape[-1]
+    _require(len(seen) == len(passes) > 1
+             and all(a.shape == (1, 2) and int(a[0, 1]) == frames
+                     for a in seen)
+             and seeks == sorted(seeks) and seeks[-1] < frames,
+             f"phase 10 (f): progress {seen} over {len(passes)} passes")
+    print(f"phase 10 (f): generate(monitor_progress=...) on the 60 s WAV's "
+          f"{frames} frames: {len(seen)} calls for {len(passes)} seek "
+          f"passes, seek {seeks} of max_frames {frames} (the loop ends "
+          f"when every row's seek reaches it), {wall_f:.2f} s wall",
+          flush=True)
+    print(f"phase 10 ok: the full-sequence, auxiliary, short-form, "
+          f"checkpoint and progress entry points at large-v3 width in "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return totals
+
+
 def _large_params():
     import torch
     from crisperwhisper_tpu_torch.config import WhisperArch
@@ -1911,6 +2184,8 @@ def main() -> int:
             launches["decode_step"] += phase7_beams_prompts(tmp, large)
             launches.update(phase8_remaining(tmp, large))
             for name, n in phase9_serving(tmp, large, card).items():
+                launches[name] += n
+            for name, n in phase10_entry_points(tmp, large, card).items():
                 launches[name] += n
         launches["decode_step"] += spec["decode_step"]
         launches["ring_write"] = spec["ring_write"]

@@ -10,6 +10,9 @@ The DFT is cuFFT/pocketfft in true float32 (the reference runs its
 matmul DFT at Precision.HIGHEST); the mel projection is an f32 matmul,
 which PyTorch keeps out of TF32 unless a caller turns
 ``torch.backends.cuda.matmul.allow_tf32`` on.
+
+``pad_or_trim`` and ``zero_mean_unit_var_norm`` are the reference's host
+numpy functions, copied statement for statement.
 """
 
 from __future__ import annotations
@@ -104,8 +107,32 @@ def log_mel_spectrogram(waveform: torch.Tensor,
     return log_spec.reshape(*lead, *log_spec.shape[-2:]).to(dtype)
 
 
+def pad_or_trim(waveform: np.ndarray, n_samples: int) -> np.ndarray:
+    """Host-side pad/trim of raw audio to the static window length."""
+    t = waveform.shape[-1]
+    if t >= n_samples:
+        return waveform[..., :n_samples]
+    pad = [(0, 0)] * (waveform.ndim - 1) + [(0, n_samples - t)]
+    return np.pad(waveform, pad)
+
+
 def extract_features(waveform: torch.Tensor,
                      cfg: FeatureConfig = FeatureConfig(),
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Batched frontend entry point: [B, n_samples] -> [B, n_mels, frames]."""
     return log_mel_spectrogram(waveform, cfg, dtype)
+
+
+def zero_mean_unit_var_norm(waveform: np.ndarray,
+                            length: int | None = None,
+                            padding_value: float = 0.0) -> np.ndarray:
+    """Optional per-utterance normalization over the true (unpadded)
+    region (hf feature_extraction_whisper.py:169-190 `do_normalize`)."""
+    n = length if length is not None else waveform.shape[-1]
+    true = waveform[..., :n]
+    mean = true.mean(axis=-1, keepdims=True)
+    var = true.var(axis=-1, keepdims=True)
+    out = (waveform - mean) / np.sqrt(var + 1e-7)
+    if length is not None and length < waveform.shape[-1]:
+        out[..., length:] = padding_value
+    return out

@@ -138,6 +138,7 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
              task_token: int | None = None,
              detect_language_first: bool = False,
              generator: torch.Generator | None = None,
+             monitor_progress: Any | None = None,
              assistant: tuple[Any, WhisperArch] | str | None = None
              ) -> GenerateOutput:
     """Transcribe batched (possibly > 30 s) mel features.
@@ -149,6 +150,9 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
     max_frames: [B] per-row seek bound; defaults to total_frames.
     generator: torch.Generator on the features' device for the sampled
       fallback temperatures (default: seeded with opts.prompt_seed).
+    monitor_progress: optional callable, called at the top of each seek
+      pass with the int64 [B, 2] array of (seek, max_frames) per row (hf
+      generation_whisper.py:796-798).
     assistant: optional (draft_params, draft_arch) pair, or
       "prompt_lookup": windows at temperature 0 decode speculatively
       (decoding/assisted.py), with the same output as plain greedy.
@@ -269,6 +273,8 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
         prompt_seeded = True
 
     while (seek < max_frames).any():
+        if monitor_progress is not None:
+            monitor_progress(np.stack([seek, max_frames], axis=1))
         active = seek < max_frames
         time_offset = seek.astype(np.float64) * opts.time_precision \
             / INPUT_STRIDE

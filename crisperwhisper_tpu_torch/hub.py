@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 
+from ._device import resolve as resolve_device
 from .config import (FeatureConfig, GenerationOptions, PipelineOptions,
                       WhisperArch, load_checkpoint_configs)
 from .tokenizer.whisper_tokenizer import WhisperTokenizer
@@ -154,11 +155,7 @@ def load_pipeline(model_dir: str, *,
     if isinstance(quantize, str) and quantize != "serving":
         raise ValueError(f"quantize={quantize!r}: use False, True, or "
                          "'serving'")
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("load_pipeline: no CUDA device; the port runs on "
-                           "the card by default, pass device=\"cpu\" to run "
-                           "on the CPU")
+    device = resolve_device(device, "load_pipeline")
     model_dir = resolve_checkpoint(model_dir)
     cfgs = load_checkpoint_configs(model_dir)
     arch = WhisperArch.from_hf_config(cfgs["config"])

@@ -7,9 +7,10 @@ name only, while a JAX tree (``params_from_jax``) is transposed back: its
 dense weights are [d_in, d_out], its conv weights HIO [k, C_in, C_out] and
 its layers stacked on a leading axis.
 
-The safetensors reader is self-contained (u64 little-endian header length,
-JSON header, raw little-endian tensor bytes), so loading needs neither the
-``safetensors`` package nor JAX.
+The safetensors reader and writer are self-contained (u64 little-endian
+header length, JSON header padded to 8 bytes, raw little-endian tensor
+bytes laid end to end), so loading and export (``save_hf_checkpoint``)
+need neither the ``safetensors`` package nor JAX.
 """
 
 from __future__ import annotations
@@ -23,13 +24,15 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
+from .._device import resolve as resolve_device
 from ..config import WhisperArch
 
 from .whisper import Params
 
 _ATTN_MAP = {"q_proj": "q", "k_proj": "k", "v_proj": "v", "out_proj": "o"}
 _F32_KEYS = {"ln", "ln1", "ln2", "ln3", "ln_post"}
-_KEEP = {"w_scale": torch.bfloat16}     # quantized dense scales stay bf16
+# quantized dense scales stay bf16
+_KEEP = {"w_scale": torch.bfloat16, "w_gscale": torch.bfloat16}
 
 # safetensors dtype tag -> (numpy storage dtype, torch dtype)
 _ST_DTYPES = {
@@ -39,6 +42,7 @@ _ST_DTYPES = {
     "I16": (np.int16, torch.int16), "I8": (np.int8, torch.int8),
     "U8": (np.uint8, torch.uint8), "BOOL": (np.bool_, torch.bool),
 }
+_ST_TAGS = {torch_dtype: tag for tag, (_, torch_dtype) in _ST_DTYPES.items()}
 
 
 def _key_path(key: str) -> tuple[tuple, int | None] | None:
@@ -149,31 +153,15 @@ def params_from_jax(tree_np: Mapping[str, Any], arch: WhisperArch,
     d_in]; conv HIO [k, C_in, C_out] -> [C_out, C_in, k]; stacked [L, ...]
     layer leaves -> one dict per layer. A quantized tree (models/quantize)
     carries across as well: int8 ``w_q`` [L, d_in, d_out] -> [d_out, d_in],
-    bf16 ``w_scale`` [L, 1, d_out] -> [d_out], the fused ``self.qkv``
-    entry like any dense."""
-    def conv_leaf(path: tuple, x: np.ndarray) -> torch.Tensor:
-        a = np.asarray(x)
-        if a.dtype.name == "bfloat16":            # ml_dtypes storage
-            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
-        if path[-1] == "w" and path[-2] in ("conv1", "conv2"):
-            return t.permute(2, 1, 0)
-        if path[-1] in ("w", "w_q"):
-            return t.transpose(-1, -2)
-        if path[-1] == "w_scale":              # [L, 1, d_out] -> [L, d_out]
-            return t.squeeze(-2)
-        return t
-
-    def walk(node, path=()):
-        if isinstance(node, Mapping):
-            return {k: walk(v, path + (k,)) for k, v in node.items()}
-        return conv_leaf(path, node)
-
+    bf16 ``w_scale`` [L, 1, d_out] -> [d_out]; group-wise int4 ``w_q4``
+    [L, G, gsz/2, d_out] -> [d_out, G, gsz/2] (the same bytes: the
+    packings agree), bf16 ``w_gscale`` [L, G, d_out] -> [d_out, G]; the
+    fused ``self.qkv`` entry like any dense. A classification head is
+    ``classification_head_from_jax``'s."""
     out: dict = {}
     for stack in ("encoder", "decoder"):
         src = dict(tree_np[stack])
-        layers = walk(src.pop("layers"), (stack, "layers"))
+        layers = _jax_walk(src.pop("layers"), (stack, "layers"))
         n = arch.encoder_layers if stack == "encoder" else arch.decoder_layers
 
         def take(node, i):
@@ -181,9 +169,72 @@ def params_from_jax(tree_np: Mapping[str, Any], arch: WhisperArch,
                 return {k: take(v, i) for k, v in node.items()}
             return node[i]
 
-        out[stack] = walk(src, (stack,))
+        out[stack] = _jax_walk(src, (stack,))
         out[stack]["layers"] = {i: take(layers, i) for i in range(n)}
     return _finish(out, arch, dtype, device)
+
+
+def _jax_leaf(path: tuple, x: np.ndarray) -> torch.Tensor:
+    """One leaf of a JAX tree (host numpy) in the port's layout."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":                # ml_dtypes storage
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    if path[-1] == "w" and path[-2] in ("conv1", "conv2"):
+        return t.permute(2, 1, 0)
+    if path[-1] in ("w", "w_q", "w_gscale"):
+        return t.transpose(-1, -2)
+    if path[-1] == "w_scale":                  # [L, 1, d_out] -> [L, d_out]
+        return t.squeeze(-2)
+    if path[-1] == "w_q4":                     # [L, G, gsz/2, d_out]
+        return t.permute(0, 3, 1, 2)
+    return t
+
+
+def _jax_walk(node, path: tuple = ()):
+    if isinstance(node, Mapping):
+        return {k: _jax_walk(v, path + (k,)) for k, v in node.items()}
+    return _jax_leaf(path, node)
+
+
+def classification_head_from_jax(head_np: Mapping[str, Any],
+                                 dtype: torch.dtype = torch.float32,
+                                 device: torch.device | str = "cpu"
+                                 ) -> Params:
+    """The JAX package's classification head ({"projector", "classifier"},
+    reference whisper.py:939), read back to host numpy, -> the head that
+    ``classification_head_from_state_dict`` gives for the same weights."""
+    return classification_head_from_state_dict(
+        {f"{name}.{hf}": _jax_walk(head_np[name][ours], (name, ours))
+         for name in ("projector", "classifier")
+         for hf, ours in (("weight", "w"), ("bias", "b"))
+         if ours in head_np[name]}, dtype, device)
+
+
+def classification_head_from_state_dict(state: Mapping[str, Any],
+                                        dtype: torch.dtype = torch.float32,
+                                        device: torch.device | str | None
+                                        = None) -> Params:
+    """WhisperForAudioClassification's ``projector.*`` and
+    ``classifier.*`` tensors (modeling_whisper.py:1500) -> the head of
+    models/whisper.audio_classification_forward: {"projector": {w, b},
+    "classifier": {w, b}}, already the port's [d_out, d_in] layout, cast
+    to ``dtype`` on ``device`` ("cuda" unless the caller names one)."""
+    dev = resolve_device(device, "classification_head_from_state_dict")
+
+    def tensor(key):
+        v = state[key]
+        t = v if isinstance(v, torch.Tensor) else \
+            torch.as_tensor(np.asarray(v))
+        return t.to(device=dev, dtype=dtype).contiguous()
+
+    head: Params = {}
+    for name in ("projector", "classifier"):
+        head[name] = {"w": tensor(f"{name}.weight")}
+        if f"{name}.bias" in state:
+            head[name]["b"] = tensor(f"{name}.bias")
+    return head
 
 
 def read_safetensors(path: str) -> dict[str, torch.Tensor]:
@@ -213,6 +264,111 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
         out[name] = t.view(torch_dtype) if torch_dtype == torch.bfloat16 \
             else t
     return out
+
+
+def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]
+                      ) -> int:
+    """Write ``tensors`` (any device; F64, F32, F16, BF16, I64, I32, I16,
+    I8, U8 or BOOL) to one .safetensors file that ``read_safetensors`` and
+    the ``safetensors`` package read back bit for bit: tensors in name
+    order, laid end to end after the header. The header carries
+    ``{"format": "pt"}``, as ``save_pretrained`` writes it, because
+    ``from_pretrained`` checks it. Returns the bytes written."""
+    names = sorted(tensors)
+    header: dict[str, Any] = {"__metadata__": {"format": "pt"}}
+    offset = 0
+    for name in names:
+        t = tensors[name]
+        if t.dtype not in _ST_TAGS:
+            raise ValueError(f"{path}: tensor {name} has dtype {t.dtype}, "
+                             "which safetensors does not store")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_TAGS[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)            # data starts on 8 bytes
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name in names:
+            t = tensors[name].detach().to("cpu").contiguous()
+            if t.dtype == torch.bfloat16:          # numpy has no bf16
+                t = t.view(torch.int16)
+            f.write(t.numpy().tobytes())
+    return 8 + len(blob) + offset
+
+
+def state_dict_from_params(params: Params) -> dict[str, torch.Tensor]:
+    """The inverse of ``params_from_state_dict`` (reference loader.py:242):
+    port params -> a flat HF state dict ("model."-prefixed keys, torch
+    layouts, which are the port's own), for export into the reference
+    stack (``from_pretrained``). The tensors are the params' own, on their
+    device. Quantized (``w_q``/``w_q4``) and fused (``qkv``) trees cannot
+    be exported: ValueError; export the source params instead."""
+    out: dict[str, torch.Tensor] = {}
+
+    def lin(prefix: str, p: Params) -> None:
+        if "w_q" in p or "w_q4" in p:
+            raise ValueError(f"{prefix}: quantized leaf cannot be exported "
+                             "to HF format; export the unquantized params")
+        out[f"{prefix}.weight"] = p["w"]
+        if "b" in p:
+            out[f"{prefix}.bias"] = p["b"]
+
+    def ln(prefix: str, p: Params) -> None:
+        out[f"{prefix}.weight"] = p["scale"]
+        out[f"{prefix}.bias"] = p["bias"]
+
+    enc, dec = params["encoder"], params["decoder"]
+    for name in ("conv1", "conv2"):
+        out[f"model.encoder.{name}.weight"] = enc[name]["w"]
+        out[f"model.encoder.{name}.bias"] = enc[name]["b"]
+    out["model.encoder.embed_positions.weight"] = enc["pos"]
+    ln("model.encoder.layer_norm", enc["ln_post"])
+    out["model.decoder.embed_tokens.weight"] = dec["tok_emb"]
+    out["model.decoder.embed_positions.weight"] = dec["pos_emb"]
+    ln("model.decoder.layer_norm", dec["ln"])
+    for i, lp in enumerate(enc["layers"]):
+        base = f"model.encoder.layers.{i}"
+        ln(f"{base}.self_attn_layer_norm", lp["ln1"])
+        ln(f"{base}.final_layer_norm", lp["ln2"])
+        for hf, ours in _ATTN_MAP.items():
+            lin(f"{base}.self_attn.{hf}", lp["attn"][ours])
+        lin(f"{base}.fc1", lp["mlp"]["fc1"])
+        lin(f"{base}.fc2", lp["mlp"]["fc2"])
+    for i, lp in enumerate(dec["layers"]):
+        base = f"model.decoder.layers.{i}"
+        if "qkv" in lp["self"]:
+            raise ValueError(f"{base}: fused q/k/v cannot be exported to HF "
+                             "format; export the params before "
+                             "fuse_decoder_qkv")
+        ln(f"{base}.self_attn_layer_norm", lp["ln1"])
+        ln(f"{base}.encoder_attn_layer_norm", lp["ln2"])
+        ln(f"{base}.final_layer_norm", lp["ln3"])
+        for hf, ours in _ATTN_MAP.items():
+            lin(f"{base}.self_attn.{hf}", lp["self"][ours])
+            lin(f"{base}.encoder_attn.{hf}", lp["cross"][ours])
+        lin(f"{base}.fc1", lp["mlp"]["fc1"])
+        lin(f"{base}.fc2", lp["mlp"]["fc2"])
+    return out
+
+
+def save_hf_checkpoint(model_dir: str, params: Params, arch: WhisperArch,
+                       config_extra: Mapping[str, Any] | None = None
+                       ) -> None:
+    """Write an HF-format checkpoint directory (model.safetensors and
+    config.json) that ``load_params``, the JAX package's loader and the
+    reference's ``from_pretrained`` read. Tokenizer and generation files
+    are the caller's (they are data, not weights)."""
+    os.makedirs(model_dir, exist_ok=True)
+    write_safetensors(os.path.join(model_dir, "model.safetensors"),
+                      state_dict_from_params(params))
+    cfg = {**arch.to_hf_config(), **(dict(config_extra) if config_extra
+                                      else {})}
+    cfg.setdefault("model_type", "whisper")
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
 
 
 def _iter_safetensor_files(model_dir: str) -> Iterable[str]:

@@ -17,8 +17,14 @@ Parameter layout (models/loader.py builds it):
 The encoder's unmasked self-attention goes through ops/fused_attention.py
 (the CUDA kernel on CUDA tensors). The decoder step's attentions, MLPs and
 LM head are plain torch ops, as the reference leaves them to XLA; so is
-the quantized step (int8 weights, int8/int4 caches). The quantized
-serving step that runs all layers in one kernel is ops/decode_step.py.
+the quantized step (int8 or group-wise int4 weights, int8/int4 caches).
+The quantized serving step that runs all layers in one kernel is
+ops/decode_step.py.
+
+The full-sequence functions (``decoder_forward``, ``forward``,
+``causal_lm_forward``, ``audio_classification_forward``) run the
+teacher-forced decoder over a whole id sequence with a causal mask, for
+parity checks, no-speech capture and the auxiliary heads.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve as resolve_device
 from ..config import WhisperArch
 
 from ..ops.fused_attention import fused_attention
 from ..ops.ring_write import ring_plan, write_block_columns_group
+from .quantize import unpack_int4_weights
 
 Params = dict[str, Any]
 
@@ -54,11 +62,22 @@ def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     """x @ wᵀ (+ b), weights [d_out, d_in]. The int8 layout of
     models/quantize.py ({"w_q": int8 [d_out, d_in], "w_scale": bf16
     [d_out]}) multiplies by the bf16 scale after the product, in x's
-    dtype, as the reference's dense does (whisper.py:64-67)."""
+    dtype, as the reference's dense does (whisper.py:64-67). The
+    group-wise int4 layout ({"w_q4": uint8 [d_out, G, gsz/2], "w_gscale":
+    bf16 [d_out, G]}) contracts each group of gsz input channels, then
+    folds the group scales into the [..., G, d_out] partials, in x's dtype
+    (whisper.py:68-84)."""
     if "w_q" in p:
         y = F.linear(x, p["w_q"].to(x.dtype)) * p["w_scale"].to(x.dtype)
-        return y + p["b"].to(y.dtype) if "b" in p else y
-    return F.linear(x, p["w"], p.get("b"))
+    elif "w_q4" in p:
+        codes = unpack_int4_weights(p["w_q4"]).to(x.dtype)  # [d_out, G, gsz]
+        _, g, gsz = codes.shape
+        part = torch.einsum("...gi,ogi->...go",
+                            x.reshape(*x.shape[:-1], g, gsz), codes)
+        y = torch.einsum("...go,og->...o", part, p["w_gscale"].to(x.dtype))
+    else:
+        return F.linear(x, p["w"], p.get("b"))
+    return y + p["b"].to(y.dtype) if "b" in p else y
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -571,6 +590,110 @@ def decode_step(params: Params, arch: WhisperArch, tokens: torch.Tensor,
         params, arch, tokens[:, None], position, cache, align_sel, key_mask,
         pos_offset, beam_groups, False)
     return logits[:, 0], cache, aligned[:, :, 0]
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence (teacher-forced) decoder and the auxiliary heads
+# ---------------------------------------------------------------------------
+
+
+def _decoder_sequence(params: Params, arch: WhisperArch, ids,
+                      encoder_out: torch.Tensor | None,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The decoder over whole sequences ids [B, T] in ``dtype``, causally
+    masked, with cross K/V projected from ``encoder_out`` in every layer
+    (no cross sublayer when it is None); the tied LM head in f32."""
+    dec = params["decoder"]
+    h = arch.decoder_attention_heads
+    scale = arch.head_dim ** -0.5
+    dev = dec["tok_emb"].device
+    ids = torch.as_tensor(ids, device=dev).long()
+    t = ids.shape[-1]
+    x = dec["tok_emb"][ids].to(dtype) + dec["pos_emb"][:t].to(dtype)
+    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+    for lp in dec["layers"]:
+        q, k, v = _self_qkv(layer_norm(x, lp["ln1"]), lp["self"], h, scale)
+        out, _ = attention(q, k, v, causal)
+        x = x + dense(_merge_heads(out), lp["self"]["o"])
+        if encoder_out is not None:
+            y = layer_norm(x, lp["ln2"])
+            out, _ = attention(
+                _split_heads(dense(y, lp["cross"]["q"]) * scale, h),
+                _split_heads(dense(encoder_out, lp["cross"]["k"]), h),
+                _split_heads(dense(encoder_out, lp["cross"]["v"]), h))
+            x = x + dense(_merge_heads(out), lp["cross"]["o"])
+        x = x + mlp_block(layer_norm(x, lp["ln3"]), lp["mlp"])
+    x = layer_norm(x, dec["ln"])
+    return torch.matmul(x.float(), dec["tok_emb"].to(dtype).float().T)
+
+
+@torch.inference_mode()
+def decoder_forward(params: Params, arch: WhisperArch, decoder_input_ids,
+                    encoder_out: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced full-sequence decoder (reference whisper.py:844):
+    ids [B, T] -> logits [B, T, vocab] f32, activations in the encoder
+    states' dtype. Plain, fused-q/k/v and quantized weight trees alike."""
+    return _decoder_sequence(params, arch, decoder_input_ids, encoder_out,
+                             encoder_out.dtype)
+
+
+def forward(params: Params, arch: WhisperArch, input_features: torch.Tensor,
+            decoder_input_ids) -> torch.Tensor:
+    """``encode`` then ``decoder_forward``: log-mel [B, n_mels, 3000] and
+    ids [B, T] -> logits [B, T, vocab] f32."""
+    return decoder_forward(params, arch, decoder_input_ids,
+                           encode(params, arch, input_features))
+
+
+@torch.inference_mode()
+def causal_lm_forward(params: Params, arch: WhisperArch, input_ids,
+                      encoder_out: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """WhisperForCausalLM's forward (modeling_whisper.py:1359): the decoder
+    alone as an LM. With ``encoder_out`` it is ``decoder_forward``; without
+    it the cross sublayer is skipped and the activations take the token
+    embedding's dtype (reference whisper.py:893-924)."""
+    if encoder_out is not None:
+        return decoder_forward(params, arch, input_ids, encoder_out)
+    return _decoder_sequence(params, arch, input_ids, None,
+                             params["decoder"]["tok_emb"].dtype)
+
+
+@torch.inference_mode()
+def audio_classification_forward(params: Params, arch: WhisperArch,
+                                 input_features: torch.Tensor,
+                                 head: Params) -> torch.Tensor:
+    """WhisperForAudioClassification's forward (modeling_whisper.py:1500):
+    the encoder, then the projector, the mean over time and the
+    classifier, those three in f32 -> logits [B, num_labels] f32.
+    ``head`` = {"projector": {w, b}, "classifier": {w, b}}, [d_out, d_in]
+    weights (``init_classification_head``,
+    loader.classification_head_from_state_dict)."""
+    f32 = {name: {k: v.float() for k, v in p.items()}
+           for name, p in head.items()}
+    states = encode(params, arch, input_features).float()
+    pooled = dense(states, f32["projector"]).mean(dim=1)
+    return dense(pooled, f32["classifier"])
+
+
+def init_classification_head(arch: WhisperArch, num_labels: int,
+                             generator: torch.Generator,
+                             classifier_proj_size: int = 256,
+                             dtype: torch.dtype = torch.float32,
+                             device: torch.device | str | None = None
+                             ) -> Params:
+    """A random classification head (weights N(0, 0.02), zero biases) in
+    the port's [d_out, d_in] layout, on ``device`` ("cuda" unless the
+    caller names one); ``generator`` must live there."""
+    dev = resolve_device(device, "init_classification_head")
+
+    def lin(d_in, d_out):
+        w = torch.randn((d_out, d_in), generator=generator, device=dev)
+        return {"w": (w * 0.02).to(dtype),
+                "b": torch.zeros((d_out,), dtype=dtype, device=dev)}
+
+    return {"projector": lin(arch.d_model, classifier_proj_size),
+            "classifier": lin(classifier_proj_size, num_labels)}
 
 
 # ---------------------------------------------------------------------------

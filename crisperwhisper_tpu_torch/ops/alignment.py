@@ -67,27 +67,19 @@ def znorm_tokens(weights: torch.Tensor,
     return (weights - mean) / std.clamp_min(1e-10)
 
 
-def dtw_jump_times(matrix: torch.Tensor, n_tokens: torch.Tensor,
-                   n_frames: torch.Tensor) -> torch.Tensor:
-    """Batched DTW + backtrace -> first-arrival frame per token row.
-
-    matrix: [B, N, M] f32 cost (negated attention). n_tokens, n_frames:
-    [B] integer tensors. Returns int32 [B, N]; rows >= n_tokens hold the
-    last valid value. What lies outside the live rectangle [0, n_tokens] x
-    [0, n_frames] never reaches the result: every cell inside depends only
-    on cells above and to its left, and the backtrace starts at (n_tokens,
-    n_frames). The DP walks the anti-diagonals with the whole batch and
-    every row at once; each cell is one f32 add."""
-    b, n, m = matrix.shape
-    dev = matrix.device
-    mat = matrix.float()
+def _diagonal_traces(mat: torch.Tensor) -> torch.Tensor:
+    """The DP over a batch of [N, M] f32 costs, walked along the
+    anti-diagonals with the whole batch and every row at once (each cell
+    one f32 add): int8 [B, N + M - 1, N + 1], where [:, d - 2, i] is the
+    trace code of cell (i, d - i) (0 diagonal, 1 up, 2 left)."""
+    b, n, m = mat.shape
+    dev = mat.device
     inf = torch.tensor(float("inf"), device=dev)
     rows = torch.arange(n + 1, device=dev)
     cost_d2 = torch.full((b, n + 1), float("inf"), device=dev)
     cost_d2[:, 0] = 0.0                                  # diagonal 0
     cost_d1 = torch.full((b, n + 1), float("inf"), device=dev)
     inf_col = torch.full((b, 1), float("inf"), device=dev)
-    # traces[:, d - 2, i] = trace code of cell (i, d - i)
     traces = torch.empty((b, n + m - 1, n + 1), dtype=torch.int8, device=dev)
     for d in range(2, n + m + 1):
         c0 = torch.cat([inf_col, cost_d2[:, :-1]], dim=1)
@@ -103,6 +95,38 @@ def dtw_jump_times(matrix: torch.Tensor, n_tokens: torch.Tensor,
         new = torch.where(valid, mval + c, inf)
         traces[:, d - 2] = t.to(torch.int8)
         cost_d2, cost_d1 = cost_d1, new
+    return traces
+
+
+def dtw_trace(matrix: torch.Tensor) -> torch.Tensor:
+    """DP over one [N, M] cost matrix (the negated smoothed attention) ->
+    its int8 trace [N + 1, M + 1]: 0 diagonal, 1 up (token - 1), 2 left
+    (time - 1), with the tie-break of generation_whisper.py:82-90; row 0
+    is 2 and column 0 is 1 (the boundary rules of the backtrace, :96-97),
+    as the reference's dtw_trace (alignment.py:109-173) gives it."""
+    n, m = matrix.shape
+    traces = _diagonal_traces(matrix[None].float())[0]
+    i = torch.arange(n + 1, device=matrix.device)[:, None]
+    j = torch.arange(m + 1, device=matrix.device)[None, :]
+    trace = traces[(i + j - 2).clamp(0, n + m - 2), i.expand(n + 1, m + 1)]
+    trace[0, :] = 2
+    trace[:, 0] = 1
+    return trace
+
+
+def dtw_jump_times(matrix: torch.Tensor, n_tokens: torch.Tensor,
+                   n_frames: torch.Tensor) -> torch.Tensor:
+    """Batched DTW + backtrace -> first-arrival frame per token row.
+
+    matrix: [B, N, M] f32 cost (negated attention). n_tokens, n_frames:
+    [B] integer tensors. Returns int32 [B, N]; rows >= n_tokens hold the
+    last valid value. What lies outside the live rectangle [0, n_tokens] x
+    [0, n_frames] never reaches the result: every cell inside depends only
+    on cells above and to its left, and the backtrace starts at (n_tokens,
+    n_frames). The trace comes from ``_diagonal_traces``."""
+    b, n, m = matrix.shape
+    dev = matrix.device
+    traces = _diagonal_traces(matrix.float())
 
     nt = n_tokens.to(device=dev, dtype=torch.long).clamp(0, n)
     nf = n_frames.to(device=dev, dtype=torch.long).clamp(0, m)

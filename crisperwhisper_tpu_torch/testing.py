@@ -250,6 +250,28 @@ def to_device(tree, device):
     return tree.to(device)
 
 
+def tree_mismatch(ref, got, device: str | None = None) -> list[str]:
+    """The leaf paths where the tree ``got`` differs from ``ref`` in
+    structure (dicts and lists), dtype or bits, or, with ``device``, lies
+    on another device type; [] when it is the same tree."""
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or got.keys() != ref.keys():
+            return ["/"]
+        return [f"/{k}{p}" for k in ref
+                for p in tree_mismatch(ref[k], got[k], device)]
+    if isinstance(ref, list):
+        if not isinstance(got, list) or len(got) != len(ref):
+            return ["/"]
+        return [f"/{i}{p}" for i, (a, b) in enumerate(zip(ref, got))
+                for p in tree_mismatch(a, b, device)]
+    if not isinstance(got, torch.Tensor) or got.dtype != ref.dtype \
+            or (device is not None and got.device.type != device) \
+            or got.shape != ref.shape or not torch.equal(got.cpu(),
+                                                         ref.cpu()):
+        return [""]
+    return []
+
+
 # ---------------------------------------------------------------------------
 # Kernel against plain version
 # ---------------------------------------------------------------------------

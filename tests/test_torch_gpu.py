@@ -1217,3 +1217,82 @@ def test_build_names_a_source_nvcc_refuses(gen, tmp_path):
     bad.write_text("__global__ void k() { undeclared = 1; }\n")
     with pytest.raises(RuntimeError, match=r"nvcc failed on broken\.cu"):
         _build.compile_object(bad, tmp_path / "broken.o")
+
+
+def _short_form(ckpt: str, params, device: str, mel, num_frames):
+    """The TINY f32 model on ``device``: generate_short_form of the log-mel
+    batch ``mel`` with word timestamps, and ``forward`` over the
+    sequences it returns -> (ShortFormOutput, logits on the CPU)."""
+    from dataclasses import replace
+    from crisperwhisper_tpu_torch.decoding import generate_short_form
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.models import forward
+    pipe = load_pipeline(ckpt, dtype=torch.float32, device=device,
+                         params=testing.to_device(params, device))
+    feats = torch.from_numpy(mel).to(device)
+    out = generate_short_form(pipe.params, pipe.arch, pipe.specials,
+                              replace(pipe.gen_opts, max_new_tokens=32),
+                              feats, num_frames=num_frames)
+    logits = forward(pipe.params, pipe.arch, feats,
+                     torch.from_numpy(out.sequences).to(device))
+    return out, logits.cpu()
+
+
+def test_forward_and_short_form_on_card_match_cpu(gen, tmp_path):
+    """The TINY f32 model (seeded init_params) on the card and on the CPU:
+    generate_short_form launches the encoder-attention, align-prep and
+    DTW kernels and gives the CPU's tokens, timestamps within one DTW
+    frame, on full rows and a row cropped to 322 frames; forward over
+    those sequences gives the CPU's top-1 token at every position."""
+    import numpy as np
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    from crisperwhisper_tpu_torch.ops.align_prep import align_prep
+    from crisperwhisper_tpu_torch.ops.dtw import dtw
+    from crisperwhisper_tpu_torch.ops.fused_attention import fused_attention
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    params = init_params(WhisperArch(**testing.TINY),
+                         torch.Generator().manual_seed(0))
+    mel = np.random.default_rng(11).standard_normal((2, 80, 500)).astype(
+        np.float32)
+    for num_frames in (None, np.array([500, 322])):
+        cpu, cpu_logits = _short_form(ckpt, params, "cpu", mel, num_frames)
+        before = [w.launches for w in (fused_attention, align_prep, dtw)]
+        gpu, gpu_logits = _short_form(ckpt, params, "cuda", mel, num_frames)
+        after = [w.launches for w in (fused_attention, align_prep, dtw)]
+        assert all(a > b for a, b in zip(after, before)), (before, after)
+        np.testing.assert_array_equal(gpu.sequences, cpu.sequences)
+        np.testing.assert_array_equal(gpu.num_generated, cpu.num_generated)
+        assert np.abs(gpu.token_timestamps
+                      - cpu.token_timestamps).max() <= testing.TS_BAND
+        assert torch.equal(gpu_logits.argmax(-1), cpu_logits.argmax(-1))
+
+
+def test_checkpoint_round_trips_onto_the_card(gen, tmp_path):
+    """save_params -> load_saved_params(device="cuda") for a fused int8
+    and a group-wise int4 tree, and save_hf_checkpoint -> load_params(
+    device="cuda") for the plain one: every leaf on the card, bit-equal,
+    with its dtype."""
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models import quantize as Q
+    from crisperwhisper_tpu_torch.models.loader import (load_params,
+                                                        save_hf_checkpoint)
+    from crisperwhisper_tpu_torch.models.whisper import init_params
+    from crisperwhisper_tpu_torch.utils.checkpoint import (load_saved_params,
+                                                           save_params)
+    arch = WhisperArch(**testing.TINY)
+    params = testing.random_affine(
+        init_params(arch, torch.Generator().manual_seed(0)), 1)
+    for i, tree in enumerate((
+            Q.quantize_decoder_weights(Q.fuse_decoder_qkv(params,
+                                                          arch.head_dim)),
+            Q.quantize_decoder_weights(params, bits=4))):
+        save_params(str(tmp_path / f"p{i}"), tree, metadata={"i": i})
+        back, meta = load_saved_params(str(tmp_path / f"p{i}"),
+                                       device="cuda")
+        assert meta == {"i": i}
+        assert testing.tree_mismatch(tree, back, "cuda") == []
+    save_hf_checkpoint(str(tmp_path / "hf"), params, arch)
+    back, _ = load_params(str(tmp_path / "hf"), dtype=torch.float32,
+                          device="cuda")
+    assert testing.tree_mismatch(params, back, "cuda") == []

@@ -40,6 +40,14 @@ import crisperwhisper_tpu_torch.utils.evaluation
 import crisperwhisper_tpu_torch.tokenizer.normalizers
 import crisperwhisper_tpu_torch.tokenizer.number_normalizer
 import crisperwhisper_tpu_torch.app
+import crisperwhisper_tpu_torch.audio
+import crisperwhisper_tpu_torch.decoding
+import crisperwhisper_tpu_torch.models
+import crisperwhisper_tpu_torch.ops
+import crisperwhisper_tpu_torch.utils.checkpoint
+import crisperwhisper_tpu_torch.tokenizer.synthetic
+import crisperwhisper_tpu_torch.decoding.generate
+import crisperwhisper_tpu_torch.models.quantize
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "crisperwhisper_tpu"))
 print(",".join(loaded))

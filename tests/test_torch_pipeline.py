@@ -305,6 +305,8 @@ class _ByCode:
     ("crisperwhisper_tpu.audio.io", "crisperwhisper_tpu_torch.audio.io",
      ["ffmpeg_available", "ffmpeg_read", "read_wav", "resample",
       "load_audio"]),
+    ("crisperwhisper_tpu.audio.mel", "crisperwhisper_tpu_torch.audio.mel",
+     ["pad_or_trim", "zero_mean_unit_var_norm"]),
     ("crisperwhisper_tpu.pipeline.asr", "crisperwhisper_tpu_torch.pipeline.asr",
      ["Chunk", "chunk_iter", "specials_from_tokenizer"]),
     ("crisperwhisper_tpu.hub", "crisperwhisper_tpu_torch.hub",
@@ -313,7 +315,8 @@ class _ByCode:
     *[(f"crisperwhisper_tpu.{m}", f"crisperwhisper_tpu_torch.{m}", None)
       for m in ("config", "tokenizer", "tokenizer.bpe", "tokenizer.languages",
                 "tokenizer.whisper_tokenizer", "tokenizer.words",
-                "tokenizer.stitcher", "pipeline.pauses", "native_bindings")],
+                "tokenizer.stitcher", "tokenizer.synthetic", "pipeline.pauses",
+                "native_bindings")],
     ("native/cwtpu.cpp", "crisperwhisper_tpu_torch/csrc/cwtpu.cpp", None),
     *[(f"crisperwhisper_tpu.{m}", f"crisperwhisper_tpu_torch.{m}", None)
       for m in ("tokenizer.normalizers", "tokenizer.number_normalizer",

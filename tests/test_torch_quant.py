@@ -71,14 +71,15 @@ def test_quantization_error_matches_jax():
     arch = tiny_arch()
     jp = init_params(arch, jax.random.PRNGKey(1))
     tp = params_from_jax(jax.device_get(jp), arch)
-    ref = JQ.quantization_error(jp, JQ.quantize_decoder_weights(jp))
-    got = TQ.quantization_error(tp, TQ.quantize_decoder_weights(tp))
-    assert got.keys() == ref.keys()
-    for k in ref:
-        assert got[k] == pytest.approx(ref[k], rel=1e-6), k
-        assert 0 < got[k] < 1 / 127
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TQ.quantize_decoder_weights(tp, bits=4)
+    for bits, limit in ((8, 1 / 127), (4, 1 / 7)):
+        ref = JQ.quantization_error(jp, JQ.quantize_decoder_weights(jp, bits))
+        got = TQ.quantization_error(tp, TQ.quantize_decoder_weights(tp, bits))
+        assert got.keys() == ref.keys()
+        for k in ref:
+            assert got[k] == pytest.approx(ref[k], rel=1e-6), (bits, k)
+            assert 0 < got[k] < limit
+    with pytest.raises(ValueError, match="use 8 or 4"):
+        TQ.quantize_decoder_weights(tp, bits=2)
 
 
 def _encoder_out(arch, jq, batch):
