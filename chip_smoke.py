@@ -168,11 +168,28 @@ Phases, one line each on stdout:
      "cuda") and, fused int8 and int4, save_params -> load_saved_params(
      device="cuda"): every leaf back bit-equal with its dtype, bytes and
      seconds printed; (f) generate(monitor_progress=...) on the 60 s WAV's
-     features: one call a seek pass, seek non-decreasing below max_frames.
-Then a JSON line with one entry per kernel (launches: phases 4, 9 and 10
-for the first three, phases 5, 6, 7 and 9 for the decode step, phase 6
-(a) for the ring write, phase 8 for the other five), the card's name and
-power limit, and as the last line {"ok": true, "device": {...}}.
+     features: one call a seek pass, seek non-decreasing below max_frames;
+ 11. tensor-parallel serving over torch.distributed (parallel/): (a)
+     load_pipeline(mesh=) on a 1 x 1 mesh, a world of one over NCCL in
+     this process, on phase 4's weights and 60 s WAV: text and words equal
+     to phase 4's, timestamps within 0.02 s; (b) two ranks at model = 2
+     (testing.run_world: NCCL on two cards where the machine has them,
+     else both on this card over gloo, printed) at large-v3 width on the
+     12 s array with 48 new tokens, bf16 then f32 weights with TF32 off
+     (testing.mesh_slice): each rank at most
+     0.55 + 0.45 / 2 of the replicated parameter bytes, its encoder
+     attention at 10 heads, on the tensor cores at bf16; rank 0's f32
+     tokens agreeing with the unsharded f32 run here at least 0.9; rank
+     0's bf16 wall beside the unsharded one (not a speed comparison when
+     both ranks share one card); three streams through a StreamingBatcher
+     over the f32 mesh pipeline equal to the direct call in text and
+     words, timestamps within 0.02 s; (c) dryrun_multichip on every card where there are
+     two or more, else printed as not run.
+Then a JSON line with one entry per kernel (launches: phases 4, 9, 10 and
+11 for the first three, over every rank in phase 11, phases 5, 6, 7 and
+9 for the decode step, phase 6 (a) for the ring write, phase 8 for the
+other five), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Exits non-zero, without that last line, when no CUDA card is present, when
 the port cannot be imported, or when any phase fails. Imports no JAX and,
@@ -1123,7 +1140,7 @@ def _large_ckpt(tmp: str, arch) -> str:
                                           arch)
 
 
-def phase4_large(tmp: str, large) -> dict[str, int]:
+def phase4_large(tmp: str, large) -> tuple[dict[str, int], list]:
     import numpy as np
     import torch
     from crisperwhisper_tpu_torch import testing
@@ -1216,7 +1233,7 @@ def phase4_large(tmp: str, large) -> dict[str, int]:
               f"{label} {sec:.4f} s over {calls} calls ({100 * sec / wall:.3f}"
               "% of the wall)" for label, (sec, calls), wall in zip(
                   ("60 s file", "12 s array"), tails, walls)), flush=True)
-    return launches
+    return launches, results
 
 
 def _wrappers() -> dict:
@@ -2145,6 +2162,181 @@ def phase10_entry_points(tmp: str, large, card: str) -> dict[str, int]:
     return totals
 
 
+def _phase11_one_rank(tmp: str, large, phase4_results) -> dict[str, int]:
+    """(a): load_pipeline(mesh=) on a 1 x 1 mesh, a world of one over NCCL
+    in this process, on phase 4's weights and request."""
+    import torch
+    import torch.distributed as dist
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.parallel import init_multihost, make_mesh
+
+    arch, params = large
+    (wav, _), _ = _large_requests(tmp)
+    init_multihost(f"127.0.0.1:{testing.free_port()}", 1, 0,
+                   backend="nccl", timeout=testing.COLLECTIVE_TIMEOUT_S)
+    try:
+        pipe = load_pipeline(_large_ckpt(tmp, arch), params=params,
+                             mesh=make_mesh(1, 1), language="en")
+        pipe.gen_opts = replace(pipe.gen_opts, max_new_tokens=96,
+                                force_unique_generate_call=True)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe(wav, return_timestamps="word", adjust_pauses_threshold=0.12)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        pipe.close()
+        del pipe
+    finally:
+        dist.destroy_process_group()
+    try:
+        gap = testing.result_gap(phase4_results[0], res)
+    except AssertionError as e:
+        raise SmokeError(f"phase 11 (a): the 1 x 1 mesh differs from phase "
+                         f"4: {e}") from e
+    _require(gap <= testing.TS_BAND,
+             f"phase 11 (a): word timestamps {gap} s from phase 4's")
+    main = {k: counts[k] for k in ("encoder_attention", "align_prep", "dtw")}
+    for name, n in main.items():
+        _require(n > 0, f"phase 11 (a): kernel {name} was not launched")
+    print(f"phase 11 (a): mesh 1 x 1 over NCCL (a world of one) on phase 4's "
+          f"bf16 weights, the 60 s WAV: text and {len(res['chunks'])} words "
+          f"equal to phase 4's, timestamps within {gap:.4g} s; {wall:.2f} s "
+          f"wall; launches {main}", flush=True)
+    return main
+
+
+def _phase11_two_ranks(tmp: str, large) -> dict[str, int]:
+    """(b): two ranks at model = 2 (NCCL on two cards, else gloo on this
+    one) on the 12 s array, against the unsharded run in this process on
+    the same seeded weights and request. Returns the launches of kernels
+    1-3 over both ranks."""
+    import torch
+    from crisperwhisper_tpu_torch import testing
+
+    arch, params = large
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    ckpt = _large_ckpt(tmp, arch)
+    kw = {"max_new": 48, "language": "en"}
+    ref32 = testing.unsharded_slice(ckpt, 12.0, "float32", **kw)
+    torch.cuda.empty_cache()
+    ref16 = testing.unsharded_slice(ckpt, 12.0, "bfloat16", **kw)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = testing.run_world(
+        2, "crisperwhisper_tpu_torch.testing:mesh_slice",
+        {"ckpt": ckpt, "seconds": 12.0, "dtypes": ["bfloat16", "float32"],
+         "streams": 3, **kw}, backend=backend, device="cuda", timeout=600)
+    world_s = time.perf_counter() - t0
+    limit = 0.55 + 0.45 / 2
+    totals: dict[str, int] = {}
+    for r in ranks:
+        for name, run in r["runs"].items():
+            _require(run["param_share"] <= limit,
+                     f"phase 11 (b) rank {r['rank']} {name}: "
+                     f"{run['param_share']:.3f} of the replicated bytes")
+            _require(run["heads"] == [arch.encoder_attention_heads // 2],
+                     f"phase 11 (b) rank {r['rank']} {name}: encoder "
+                     f"attention at heads {run['heads']}")
+            for k in ("encoder_attention", "align_prep", "dtw"):
+                _require(run["launches"][k] > 0,
+                         f"phase 11 (b) rank {r['rank']} {name}: kernel {k} "
+                         "was not launched")
+                totals[k] = totals.get(k, 0) + run["launches"][k]
+        bf16 = r["runs"]["bfloat16"]["launches"]
+        _require(bf16["encoder_attention_tensor_cores"]
+                 == bf16["encoder_attention"],
+                 f"phase 11 (b) rank {r['rank']}: bf16 encoder attention "
+                 f"left the tensor cores: {bf16}")
+    r32, r16 = ranks[0]["runs"]["float32"], ranks[0]["runs"]["bfloat16"]
+    agree32 = testing.token_agreement(ref32["tokens"], r32["tokens"])
+    _require(agree32 >= 0.9, f"phase 11 (b): f32 token agreement with the "
+                             f"unsharded run {agree32} (band 0.9)")
+    _check_results([(None, 12.0)] * 2, [r32["direct"][0], r16["direct"][0]])
+    streams = r32["streams"]
+    _check_results([(None, 12.0)] * len(streams), streams)
+    _require(len(streams) == 3, f"phase 11 (b): {len(streams)} batcher "
+                                "streams came back, not 3")
+    try:
+        gap_s = [testing.result_gap(r32["direct"][0], s) for s in streams]
+    except AssertionError as e:
+        raise SmokeError(f"phase 11 (b): a batcher stream differs from the "
+                         f"direct call: {e}") from e
+    _require(max(gap_s) <= testing.TS_BAND,
+             f"phase 11 (b): batcher stream word timestamps {gap_s} s from "
+             f"the direct call's (band {testing.TS_BAND})")
+    # the unsharded bf16 wall: a timed call after an untimed one
+    pipe16 = testing._slice_pipeline(ckpt, params, kw["max_new"], "en")
+    req = {"raw": testing.tone_audio(12.0, 2), "sampling_rate": testing.SR}
+    pipe16(req, return_timestamps="word")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe16(req, return_timestamps="word")
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    del pipe16
+    where = ("two cards over NCCL" if backend == "nccl" else
+             "both ranks on this one card over gloo (not a speed "
+             "comparison: two ranks share one card)")
+    same = r32["direct"][0]["text"] == ref32["direct"][0]["text"]
+    print(f"phase 11 (b): model = 2, {where}; {n_cards} card(s); the 12 s "
+          f"array at large-v3 width, {kw['max_new']} new tokens: f32 token "
+          f"agreement with the unsharded run {agree32:.3f} (band 0.9), text "
+          f"{'equal' if same else 'differs'}; bf16 token agreement "
+          f"{testing.token_agreement(ref16['tokens'], r16['tokens']):.3f} "
+          f"(informative); parameter bytes per rank "
+          + ", ".join(f"{r['runs']['float32']['param_share']:.3f}"
+                      for r in ranks)
+          + f" of the replicated (limit {limit:.3f}); encoder attention at "
+          f"{r16['heads']} heads a rank, all "
+          f"{r16['launches']['encoder_attention']} bf16 launches of rank 0 "
+          f"on the tensor cores; bf16 wall rank 0 {r16['wall']:.2f} s, "
+          f"unsharded {wall16:.2f} s; StreamingBatcher, 3 streams of the "
+          f"f32 pipeline: text and words equal to the direct call, "
+          f"timestamps within {max(gap_s):.4g} s; the world took {world_s:.1f} s", flush=True)
+    return totals
+
+
+def _phase11_dryrun() -> dict[str, int]:
+    """(c): dryrun_multichip on every card where there are two or more.
+    Returns the launches of kernels 1-3 over the ranks."""
+    import torch
+    from crisperwhisper_tpu_torch.parallel import dryrun
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"phase 11 (c): dryrun_multichip not run: {n_cards} card "
+              "(it needs one card a rank)", flush=True)
+        return {}
+    t0 = time.perf_counter()
+    results = dryrun.run_dryrun(n_cards, "cuda")
+    launches = dryrun.rank_launches(results)
+    print(f"phase 11 (c): {results[0]['line']} (NCCL, {n_cards} cards, "
+          f"{time.perf_counter() - t0:.1f} s); launches {launches}",
+          flush=True)
+    return launches
+
+
+def phase11_parallel(tmp: str, large, card: str,
+                     phase4_results) -> dict[str, int]:
+    """Tensor-parallel serving over torch.distributed at large-v3 width:
+    (a) a 1 x 1 mesh in this process; (b) two ranks at model = 2; (c) the
+    dry run on every card. Returns the launches of kernels 1-3 over every
+    rank."""
+    t_phase = time.perf_counter()
+    totals: dict[str, int] = {}
+    for part in (_phase11_one_rank(tmp, large, phase4_results),
+                 _phase11_two_ranks(tmp, large), _phase11_dryrun()):
+        for k, n in part.items():
+            totals[k] = totals.get(k, 0) + n
+    print(f"phase 11 ok: tensor-parallel serving in "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return totals
+
+
 def _large_params():
     import torch
     from crisperwhisper_tpu_torch.config import WhisperArch
@@ -2178,7 +2370,7 @@ def main() -> int:
         entries = phase2_kernels(large) + phase2_remaining(large)
         with tempfile.TemporaryDirectory(prefix="cw_smoke_") as tmp:
             phase3_tiny(tmp)
-            launches = phase4_large(tmp, large)
+            launches, phase4_results = phase4_large(tmp, large)
             launches["decode_step"] = phase5_serving(tmp, large)
             spec = phase6_speculative(tmp, large)
             launches["decode_step"] += phase7_beams_prompts(tmp, large)
@@ -2186,6 +2378,9 @@ def main() -> int:
             for name, n in phase9_serving(tmp, large, card).items():
                 launches[name] += n
             for name, n in phase10_entry_points(tmp, large, card).items():
+                launches[name] += n
+            for name, n in phase11_parallel(tmp, large, card,
+                                            phase4_results).items():
                 launches[name] += n
         launches["decode_step"] += spec["decode_step"]
         launches["ring_write"] = spec["ring_write"]

@@ -26,8 +26,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import zlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
@@ -65,11 +68,89 @@ def _self_kv_dtype(opts: GenerationOptions) -> str | None:
 def _decode_window(params, arch, specials, opts, segment_features,
                    prompt, max_new, suppress, begin_suppress, align_sel,
                    temperature, generator, dtw_frames, prompt_mask=None,
-                   sot_position=0, assistant=None, pos_offset=None):
+                   sot_position=0, assistant=None, pos_offset=None,
+                   batch_sharding=None):
     """One batched decode of 30 s windows + the alignment pass. Returns
     host arrays: sequences, num_generated, score, is the score
     length-normalized, no_speech, jump_times (seconds, or None without
     alignment heads).
+
+    With ``batch_sharding`` (parallel/mesh.data_sharding) and a row count
+    that divides its data axis, this rank decodes only its data rank's
+    rows, and the host arrays of every data rank are gathered, so every
+    rank returns the whole batch (reference longform.py:256-259); another
+    row count runs whole on every data rank. So does a sampled window
+    (temperature > 0): every rank then draws the same numbers from the same
+    generator state (``generate`` gives every rank rank 0's), as one
+    process would. On a mesh the ranks then check that they hold the same
+    tokens (``_check_agreement``)."""
+    rows = segment_features.shape[0]
+    axis = batch_sharding.axis if batch_sharding is not None else None
+    if (axis is None or axis.size == 1 or rows % axis.size
+            or temperature > 0):
+        out = _decode_rows(params, arch, specials, opts, segment_features,
+                           prompt, max_new, suppress, begin_suppress,
+                           align_sel, temperature, generator, dtw_frames,
+                           prompt_mask, sot_position, assistant, pos_offset)
+    else:
+        k = rows // axis.size
+        mine = slice(axis.index * k, (axis.index + 1) * k)
+
+        def part(x):
+            return None if x is None else x[mine]
+
+        local = _decode_rows(params, arch, specials, opts,
+                             segment_features[mine], prompt[mine], max_new,
+                             suppress, begin_suppress, align_sel, temperature,
+                             generator, dtw_frames[mine], part(prompt_mask),
+                             sot_position, assistant, part(pos_offset))
+        out = _gather_rows(local, axis, specials.eot)
+    if batch_sharding is not None:
+        _check_agreement(out, segment_features.device)
+    return out
+
+
+def _check_agreement(out: tuple, device: torch.device) -> None:
+    """Every rank of a mesh must hold the same tokens after a window: a
+    rank whose logits or draws differed would feed its model group's
+    all-reduces other rows and corrupt them without a sign. One all-reduce
+    (max) of each rank's checksum of the sequences and their lengths, and
+    of its negation; a mismatch is a RuntimeError on every rank."""
+    h = zlib.crc32(np.ascontiguousarray(out[0]).tobytes(),
+                   zlib.crc32(np.ascontiguousarray(out[1]).tobytes()))
+    v = torch.tensor([h, -h], dtype=torch.int64, device=device)
+    dist.all_reduce(v, op=dist.ReduceOp.MAX)
+    if int(v[0]) != -int(v[1]):
+        raise RuntimeError("the ranks of the mesh decoded different tokens "
+                           "for one window; their model groups' sums are "
+                           "no longer those of one model")
+
+
+def _gather_rows(local: tuple, axis, eot: int) -> tuple:
+    """Every data rank's host outputs of ``_decode_rows``, in data-rank
+    order, joined along the rows (sequences padded with eot and jump times
+    with zeros to the widest rank's)."""
+    parts: list = [None] * axis.size
+    dist.all_gather_object(parts, local, group=axis.group)
+
+    def join(i, fill):
+        arrs = [p[i] for p in parts]
+        width = max(a.shape[1] for a in arrs)
+        return np.concatenate([np.pad(a, ((0, 0), (0, width - a.shape[1])),
+                                      constant_values=fill) for a in arrs])
+
+    def rows(i):
+        return np.concatenate([p[i] for p in parts])
+
+    return (join(0, eot), rows(1), rows(2), local[3], rows(4),
+            None if local[5] is None else join(5, 0.0))
+
+
+def _decode_rows(params, arch, specials, opts, segment_features, prompt,
+                 max_new, suppress, begin_suppress, align_sel, temperature,
+                 generator, dtw_frames, prompt_mask=None, sot_position=0,
+                 assistant=None, pos_offset=None):
+    """``_decode_window`` on this rank's rows.
 
     Beam search runs only at temperature 0 (hf generate_with_fallback
     :1013-1016) and then takes precedence over an ``assistant``; its score
@@ -139,7 +220,8 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
              detect_language_first: bool = False,
              generator: torch.Generator | None = None,
              monitor_progress: Any | None = None,
-             assistant: tuple[Any, WhisperArch] | str | None = None
+             assistant: tuple[Any, WhisperArch] | str | None = None,
+             batch_sharding: Any | None = None
              ) -> GenerateOutput:
     """Transcribe batched (possibly > 30 s) mel features.
 
@@ -156,6 +238,14 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
     assistant: optional (draft_params, draft_arch) pair, or
       "prompt_lookup": windows at temperature 0 decode speculatively
       (decoding/assisted.py), with the same output as plain greedy.
+    batch_sharding: optional parallel/mesh.data_sharding(mesh): every
+      rank holds the whole feature batch, and each data rank decodes its
+      share of each window batch whose rows divide the data axis, with
+      tensor parallelism inside its model group (``_decode_window``); the
+      host bookkeeping stays the same on every rank, so every rank
+      returns the whole batch. Every rank samples from rank 0's
+      ``generator`` state, and a sampled fallback window runs whole on
+      every data rank, so the mesh draws what one process would.
     """
     feats = input_features
     dev = feats.device
@@ -257,6 +347,12 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
                  if want_ts else None)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(opts.prompt_seed)
+    if batch_sharding is not None and any(t > 0 for t in opts.temperatures):
+        # the ranks' generators may differ (a caller's, seeded per rank);
+        # every rank takes rank 0's state
+        state = [generator.get_state()]
+        dist.broadcast_object_list(state, src=0)
+        generator.set_state(state[0])
     current_segments: list[list[dict[str, Any]]] = [[] for _ in range(b)]
     prompt_seeded = False
     if prompt_ids is not None and opts.prompt_condition_type == \
@@ -347,7 +443,7 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
                 suppress, begin_suppress, align_sel, float(temperature),
                 generator, dtw_frames[rows], prompt_mask=iter_mask,
                 sot_position=sot_position, assistant=assistant,
-                pos_offset=iter_pos_offset)
+                pos_offset=iter_pos_offset, batch_sharding=batch_sharding)
             is_last = t_idx == len(opts.temperatures) - 1
             for j in range(nact):
                 if resolved[j]:

@@ -131,7 +131,8 @@ def load_pipeline(model_dir: str, *,
                   median_filter_width: int | None = None,
                   quantize: bool | str = False,
                   assistant: str | None = None,
-                  params: Any | None = None) -> ASRPipeline:
+                  params: Any | None = None,
+                  mesh: Any | None = None) -> ASRPipeline:
     """Build the ASR pipeline from a local checkpoint directory — the
     one-call equivalent of ref:transcribe.py:8-31.
 
@@ -139,7 +140,8 @@ def load_pipeline(model_dir: str, *,
     that raises RuntimeError, and the CPU has to be asked for with
     device="cpu". params: an already-built parameter dict in the loader's
     layout (e.g. models.whisper.init_params on the card) — skips the
-    safetensors read.
+    safetensors read; on a mesh it is the whole tree, which each rank cuts
+    to its slices.
 
     quantize: True fuses the decoder's q/k/v (query scale folded in) and
     quantizes its dense weights to int8 per output channel, with an int8
@@ -151,20 +153,42 @@ def load_pipeline(model_dir: str, *,
     assistant: optional speculative-decoding mode — "prompt_lookup"
     (draft-free n-gram candidates) or "self:K" (the checkpoint's own first
     K decoder layers propose, decoding/assisted.make_self_draft). The
-    output equals plain greedy decoding's either way."""
+    output equals plain greedy decoding's either way.
+
+    mesh: a ("data", "model") mesh (parallel/) for serving over several
+    ranks: each rank loads only its tensor-parallel slices (q/k/v stay
+    unfused, so the column split stays head-aligned), every chunk batch is
+    split over "data", and pipe_opts.batch_size must be a multiple of the
+    data axis. Every rank builds the pipeline; rank 0 makes the calls and
+    the others run ``pipe.follow()`` (pipeline/asr.py)."""
     if isinstance(quantize, str) and quantize != "serving":
         raise ValueError(f"quantize={quantize!r}: use False, True, or "
                          "'serving'")
-    device = resolve_device(device, "load_pipeline")
+    if mesh is None:
+        device = resolve_device(device, "load_pipeline")
+    else:
+        from .parallel.mesh import check_device, shard_params
+        check_device(mesh, device, "load_pipeline")
     model_dir = resolve_checkpoint(model_dir)
     cfgs = load_checkpoint_configs(model_dir)
     arch = WhisperArch.from_hf_config(cfgs["config"])
+    sharded = False
     if params is None:
-        params, _ = load_params(model_dir, arch, dtype=dtype, device=device)
+        # quantized on a mesh: the whole tree first, on the host, then its
+        # slices (a row-parallel int8 scale taken over a slice of d_in
+        # would differ from the reference's, hub.py:179-192)
+        sharded = mesh is not None and not quantize
+        params, _ = load_params(
+            model_dir, arch, dtype=dtype,
+            device=device if mesh is None else "cpu",
+            mesh=mesh if sharded else None)
     if quantize:
         from .models.quantize import fuse_decoder_qkv, quantize_decoder_weights
-        params = quantize_decoder_weights(fuse_decoder_qkv(params,
-                                                           arch.head_dim))
+        if mesh is None:
+            params = fuse_decoder_qkv(params, arch.head_dim)
+        params = quantize_decoder_weights(params)
+    if mesh is not None and not sharded:
+        params = shard_params(params, mesh)
     tokenizer = WhisperTokenizer.from_dir(model_dir)
 
     opts = gen_opts or load_generation_options(cfgs["generation_config"])
@@ -206,7 +230,8 @@ def load_pipeline(model_dir: str, *,
     pipe = ASRPipeline(params, arch, tokenizer,
                        specials=specials_from_tokenizer(tokenizer),
                        gen_opts=opts, pipe_opts=pipe_opts,
-                       feat_cfg=feat_cfg, assistant=assistant_obj)
+                       feat_cfg=feat_cfg, mesh=mesh,
+                       assistant=assistant_obj)
     if language is None and cfgs["generation_config"].get("is_multilingual"):
         # a legacy forced_decoder_ids that pins a language token makes
         # the language DEFINED — no detection (hf is_lang_id_undefined,

@@ -387,14 +387,28 @@ def _iter_safetensor_files(model_dir: str) -> Iterable[str]:
 
 def load_params(model_dir: str, arch: WhisperArch | None = None,
                 dtype: torch.dtype = torch.bfloat16,
-                device: torch.device | str = "cpu"
-                ) -> tuple[Params, WhisperArch]:
+                device: torch.device | str | None = None,
+                mesh: Any | None = None) -> tuple[Params, WhisperArch]:
     """Load a local HF-format Whisper checkpoint directory -> (params,
-    arch)."""
+    arch), on ``device`` ("cuda" unless the caller names one).
+
+    mesh: a ("data", "model") mesh (parallel/mesh.make_mesh): the tensors
+    are cast on the host and this rank copies only its own slices to its
+    device (parallel/mesh.shard_params), so the whole model never lands on
+    one card (reference loader.py:207-239). A ``device`` other than the
+    mesh's is a ValueError."""
+    if mesh is not None:
+        from ..parallel.mesh import check_device, shard_params
+        check_device(mesh, device, "load_params")
+    else:
+        device = resolve_device(device, "load_params")
     if arch is None:
         with open(os.path.join(model_dir, "config.json")) as f:
             arch = WhisperArch.from_hf_config(json.load(f))
     state: dict[str, torch.Tensor] = {}
     for path in _iter_safetensor_files(model_dir):
         state.update(read_safetensors(path))
+    if mesh is not None:
+        return shard_params(params_from_state_dict(state, arch, dtype,
+                                                   "cpu"), mesh), arch
     return params_from_state_dict(state, arch, dtype, device), arch

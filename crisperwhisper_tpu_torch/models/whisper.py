@@ -21,6 +21,13 @@ the quantized step (int8 or group-wise int4 weights, int8/int4 caches).
 The quantized serving step that runs all layers in one kernel is
 ops/decode_step.py.
 
+A tree from parallel/mesh.shard_params holds this rank's tensor-parallel
+slices: the attention blocks read their head count from the local
+weights, each row-parallel dense all-reduces its partial product over the
+"model" group before the bias (``dense``), and the decoder step sums the
+alignment heads over that group once, after the layer loop. Any other
+tree takes no collective.
+
 The full-sequence functions (``decoder_forward``, ``forward``,
 ``causal_lm_forward``, ``audio_classification_forward``) run the
 teacher-forced decoder over a whole id sequence with a causal mask, for
@@ -35,10 +42,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .._device import resolve as resolve_device
 from ..config import WhisperArch
+from ..parallel.mesh import REDUCE, SLICE, model_shard
 
 from ..ops.fused_attention import fused_attention
 from ..ops.ring_write import ring_plan, write_block_columns_group
@@ -68,26 +77,49 @@ def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     folds the group scales into the [..., G, d_out] partials, in x's dtype
     (whisper.py:68-84)."""
     if "w_q" in p:
-        y = F.linear(x, p["w_q"].to(x.dtype)) * p["w_scale"].to(x.dtype)
+        y = _reduce(F.linear(x, p["w_q"].to(x.dtype)), p) \
+            * p["w_scale"].to(x.dtype)
     elif "w_q4" in p:
         codes = unpack_int4_weights(p["w_q4"]).to(x.dtype)  # [d_out, G, gsz]
         _, g, gsz = codes.shape
         part = torch.einsum("...gi,ogi->...go",
                             x.reshape(*x.shape[:-1], g, gsz), codes)
-        y = torch.einsum("...go,og->...o", part, p["w_gscale"].to(x.dtype))
+        y = _reduce(torch.einsum("...go,og->...o", part,
+                                 p["w_gscale"].to(x.dtype)), p)
+    elif REDUCE in p:
+        y = _reduce(F.linear(x, p["w"]), p)
     else:
         return F.linear(x, p["w"], p.get("b"))
     return y + p["b"].to(y.dtype) if "b" in p else y
+
+
+def _reduce(y: torch.Tensor, p: Params) -> torch.Tensor:
+    """The partial product of a row-parallel dense summed over its model
+    group (parallel/mesh.shard_params marks such a dense), in place; any
+    other dense's product as it is."""
+    shard = p.get(REDUCE)
+    if shard is not None:
+        dist.all_reduce(y, group=shard.group)
+    return y
+
+
+def _out_features(p: Params) -> int:
+    """A dense's output width on this rank (its local slice on a mesh)."""
+    for key in ("w", "w_q", "w_q4"):
+        if key in p:
+            return p[key].shape[0]
+    raise KeyError("dense without weights")
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)                 # exact erf form, as torch's default
 
 
-def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B, T, d] -> contiguous [B, H, T, Dh]."""
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """[B, T, H * Dh] -> contiguous [B, H, T, Dh]. H is read from the
+    width: on a mesh a rank holds H / model heads."""
     b, t, d = x.shape
-    return x.view(b, t, num_heads, d // num_heads).transpose(1, 2) \
+    return x.view(b, t, d // head_dim, head_dim).transpose(1, 2) \
         .contiguous()
 
 
@@ -113,11 +145,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def self_attention_block(x: torch.Tensor, p: Params,
                          num_heads: int) -> torch.Tensor:
-    """The encoder's unmasked self-attention (whisper.py:155-166)."""
-    scale = (x.shape[-1] // num_heads) ** -0.5
-    q = _split_heads(dense(x, p["q"]) * scale, num_heads)
-    k = _split_heads(dense(x, p["k"]), num_heads)
-    v = _split_heads(dense(x, p["v"]), num_heads)
+    """The encoder's unmasked self-attention (whisper.py:155-166), over
+    the heads whose q/k/v rows this rank holds."""
+    dh = x.shape[-1] // num_heads
+    q = _split_heads(dense(x, p["q"]) * dh ** -0.5, dh)
+    k = _split_heads(dense(x, p["k"]), dh)
+    v = _split_heads(dense(x, p["v"]), dh)
     return dense(_merge_heads(fused_attention(q, k, v)), p["o"])
 
 
@@ -266,7 +299,9 @@ def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
     ring per beam (self_batch = B * NB; see decode_step's beam_groups)."""
     dec = params["decoder"]
     b, k_len, _ = encoder_out.shape
-    h, dh = arch.decoder_attention_heads, arch.head_dim
+    dh = arch.head_dim
+    # the heads this rank holds (all of them off a mesh)
+    h = _out_features(dec["layers"][0]["cross"]["k"]) // dh
     n_layers = arch.decoder_layers
     dtype = dtype or encoder_out.dtype
     cache_len = cache_len or arch.max_target_positions
@@ -293,7 +328,7 @@ def init_cache(params: Params, arch: WhisperArch, encoder_out: torch.Tensor,
     cks, cvs = scales(cross_dtype, b, k_len), scales(cross_dtype, b, k_len)
     for li, lp in enumerate(dec["layers"]):
         for name, dst, sc in (("k", cross_k, cks), ("v", cross_v, cvs)):
-            x = _split_heads(dense(encoder_out, lp["cross"][name]), h)
+            x = _split_heads(dense(encoder_out, lp["cross"][name]), dh)
             if cross_dtype is None:
                 dst[li] = x
             else:
@@ -321,34 +356,45 @@ def alignment_selector(arch: WhisperArch,
     return sel
 
 
-def _heads_by_layer(align_sel: np.ndarray | None,
-                    n_layers: int) -> list[tuple[list[int], list[int]]]:
+def _heads_by_layer(align_sel: np.ndarray | None, n_layers: int,
+                    first: int = 0, count: int | None = None
+                    ) -> list[tuple[list[int], list[int]]]:
     """Per layer: (alignment slots, decoder heads) that the one-hot
-    selector maps (each alignment head has exactly one source)."""
+    selector maps (each alignment head has exactly one source). On a mesh
+    a rank holds the ``count`` heads from ``first`` on: only their slots
+    are listed, by local head index."""
     out = []
     for li in range(n_layers):
         if align_sel is None:
             out.append(([], []))
             continue
         heads, slots = np.nonzero(np.asarray(align_sel)[li])
-        out.append((slots.tolist(), heads.tolist()))
+        mine = [(int(s), int(hd) - first) for hd, s in zip(heads, slots)
+                if count is None or first <= hd < first + count]
+        out.append(([s for s, _ in mine], [hd for _, hd in mine]))
     return out
 
 
-def _self_qkv(y: torch.Tensor, sp: Params, num_heads: int, scale: float
+def _self_qkv(y: torch.Tensor, sp: Params, head_dim: int, scale: float
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Head-split (q, k, v) of y, q pre-scaled: one product through the
     fused "qkv" entry when present (models/quantize.fuse_decoder_qkv,
-    whose q rows carry the scale), else three."""
+    whose q rows carry the scale), else three. A fused entry is replicated
+    on a mesh (parallel/mesh.py): the rank keeps its own heads' columns of
+    each third of the product."""
     if "qkv" in sp:
         qkv = dense(y, sp["qkv"])
         d = qkv.shape[-1] // 3
-        return (_split_heads(qkv[..., :d], num_heads),
-                _split_heads(qkv[..., d:2 * d], num_heads),
-                _split_heads(qkv[..., 2 * d:], num_heads))
-    return (_split_heads(dense(y, sp["q"]) * scale, num_heads),
-            _split_heads(dense(y, sp["k"]), num_heads),
-            _split_heads(dense(y, sp["v"]), num_heads))
+        lo, hi = 0, d
+        shard = sp["qkv"].get(SLICE)
+        if shard is not None:
+            lo = shard.index * d // shard.size
+            hi = lo + d // shard.size
+        return tuple(_split_heads(qkv[..., i * d + lo:i * d + hi], head_dim)
+                     for i in range(3))
+    return (_split_heads(dense(y, sp["q"]) * scale, head_dim),
+            _split_heads(dense(y, sp["k"]), head_dim),
+            _split_heads(dense(y, sp["v"]), head_dim))
 
 
 def quantized_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -450,7 +496,7 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
     learned-position index at 0 (the reference does so in its block step,
     whisper.py:706-715, and not in its one-token step)."""
     dec = params["decoder"]
-    h = arch.decoder_attention_heads
+    dh = arch.head_dim
     b, s = tokens.shape
     self_quant = cache.self_k_scale is not None
     cross_quant = cache.cross_k_scale is not None
@@ -491,13 +537,19 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
     n_align = align_sel.shape[-1] if align_sel is not None else 1
     aligned = torch.zeros((b, n_align, s, cache.cross_k.shape[3]),
                           dtype=torch.float32, device=dev)
-    heads = _heads_by_layer(align_sel, arch.decoder_layers)
+    shard = model_shard(params)
+    if shard is None:
+        heads = _heads_by_layer(align_sel, arch.decoder_layers)
+    else:
+        local = cache.cross_k.shape[2]
+        heads = _heads_by_layer(align_sel, arch.decoder_layers,
+                                shard.index * local, local)
     plan = (ring_plan(_self_rings(cache))
             if pos_rows is not None and cache.self_k.is_cuda else None)
 
     for li, lp in enumerate(dec["layers"]):
         y = layer_norm(x, lp["ln1"])
-        q, k_new, v_new = _self_qkv(y, lp["self"], h, scale)
+        q, k_new, v_new = _self_qkv(y, lp["self"], dh, scale)
         _write_block(cache, li, lo, pos_rows, k_new, v_new, plan)
         if self_quant:
             out, _ = quantized_attention(
@@ -510,7 +562,7 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
         x = x + dense(_merge_heads(out), lp["self"]["o"])
 
         y = layer_norm(x, lp["ln2"])
-        qc = _split_heads(dense(y, lp["cross"]["q"]) * scale, h)
+        qc = _split_heads(dense(y, lp["cross"]["q"]) * scale, dh)
         if beam_groups > 1:
             qc = _beam_rows(qc, beam_groups)
         if cross_quant:
@@ -529,6 +581,10 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
 
         x = x + mlp_block(layer_norm(x, lp["ln3"]), lp["mlp"])
 
+    if shard is not None and align_sel is not None:
+        # each slot was written by the one rank that holds its head: the
+        # sum over the model group is exact
+        dist.all_reduce(aligned, group=shard.group)
     x = layer_norm(x, dec["ln"])
     # weight-tied LM head, accumulated and returned in f32
     logits = torch.matmul(x.float(), dec["tok_emb"].float().T)
@@ -604,23 +660,23 @@ def _decoder_sequence(params: Params, arch: WhisperArch, ids,
     masked, with cross K/V projected from ``encoder_out`` in every layer
     (no cross sublayer when it is None); the tied LM head in f32."""
     dec = params["decoder"]
-    h = arch.decoder_attention_heads
-    scale = arch.head_dim ** -0.5
+    dh = arch.head_dim
+    scale = dh ** -0.5
     dev = dec["tok_emb"].device
     ids = torch.as_tensor(ids, device=dev).long()
     t = ids.shape[-1]
     x = dec["tok_emb"][ids].to(dtype) + dec["pos_emb"][:t].to(dtype)
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
     for lp in dec["layers"]:
-        q, k, v = _self_qkv(layer_norm(x, lp["ln1"]), lp["self"], h, scale)
+        q, k, v = _self_qkv(layer_norm(x, lp["ln1"]), lp["self"], dh, scale)
         out, _ = attention(q, k, v, causal)
         x = x + dense(_merge_heads(out), lp["self"]["o"])
         if encoder_out is not None:
             y = layer_norm(x, lp["ln2"])
             out, _ = attention(
-                _split_heads(dense(y, lp["cross"]["q"]) * scale, h),
-                _split_heads(dense(encoder_out, lp["cross"]["k"]), h),
-                _split_heads(dense(encoder_out, lp["cross"]["v"]), h))
+                _split_heads(dense(y, lp["cross"]["q"]) * scale, dh),
+                _split_heads(dense(encoder_out, lp["cross"]["k"]), dh),
+                _split_heads(dense(encoder_out, lp["cross"]["v"]), dh))
             x = x + dense(_merge_heads(out), lp["cross"]["o"])
         x = x + mlp_block(layer_norm(x, lp["ln3"]), lp["mlp"])
     x = layer_norm(x, dec["ln"])

@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import WhisperArch
+from ..parallel.mesh import REDUCE
 
 from .. import _build
 from ..models.whisper import (DecoderCache, _quantize, cache_values,
@@ -110,8 +111,12 @@ def _scalar(position) -> bool:
 
 
 def _quantized(params: Any, cache: DecoderCache) -> bool:
+    """Fused int8 weights on one rank: a tree sharded over a mesh
+    (parallel/mesh.py) keeps q/k/v unfused, and its row-parallel denses
+    sum over ranks, which one launch cannot."""
     lay = params["decoder"]["layers"][0]
     return ("qkv" in lay["self"] and "w_q" in lay["self"]["qkv"]
+            and REDUCE not in lay["self"]["o"]
             and "w_q" in lay["mlp"]["fc1"]
             and cache.self_k_scale is not None
             and cache.self_k.dtype == torch.int8

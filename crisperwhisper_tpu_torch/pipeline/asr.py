@@ -22,6 +22,7 @@ from typing import Any, Iterable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import (FeatureConfig, GenerationOptions, PipelineOptions,
                        SpecialTokens, WhisperArch)
@@ -65,7 +66,15 @@ def chunk_iter(audio: np.ndarray, audio_idx: int, n_samples: int,
 class ASRPipeline:
     """``pipe(audio, return_timestamps="word")``, the equivalent of
     ref:transcribe.py:21-33. ``params`` live on one device; every batch
-    runs there."""
+    runs there, or, on a mesh, on every rank of it.
+
+    On a mesh every rank builds the pipeline and rank 0 is the controller:
+    it makes every call (``pipe()``, ``warmup()``, a StreamingBatcher's
+    worker), and each of its device batches first goes to the other ranks
+    (``broadcast_object_list``: the chunks, the call's options and rank
+    0's gen_opts, pipe_opts and detect_language), which run it in
+    ``follow()`` until rank 0 calls ``close()``. So every rank enters the
+    same collectives with the same batch and options."""
 
     def __init__(self, params: Any, arch: WhisperArch,
                  tokenizer: WhisperTokenizer,
@@ -73,8 +82,14 @@ class ASRPipeline:
                  gen_opts: GenerationOptions = GenerationOptions(),
                  pipe_opts: PipelineOptions = PipelineOptions(),
                  feat_cfg: FeatureConfig | None = None,
+                 mesh: Any | None = None,
                  assistant: Any | None = None):
-        """assistant: optional speculative-decoding assistant passed to
+        """mesh: optional ("data", "model") mesh (parallel/mesh.make_mesh):
+        ``params`` are this rank's tensor-parallel slices
+        (parallel/mesh.shard_params; hub.load_pipeline(mesh=...) does it)
+        and each chunk batch is split over "data" (reference asr.py:72-99).
+
+        assistant: optional speculative-decoding assistant passed to
         generate(): a (draft_params, draft_arch) pair (e.g.
         decoding.assisted.make_self_draft) or "prompt_lookup". When None,
         gen_opts.prompt_lookup still turns on prompt lookup."""
@@ -87,6 +102,14 @@ class ASRPipeline:
         self.feat_cfg = feat_cfg or FeatureConfig(
             feature_size=arch.num_mel_bins)
         self.assistant = assistant
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import DATA, axis_sizes
+            data = axis_sizes(mesh)[DATA]
+            if pipe_opts.batch_size % data:
+                raise ValueError(
+                    f"batch_size {pipe_opts.batch_size} must be a multiple "
+                    f"of the mesh data axis ({data})")
         self.device = params["decoder"]["tok_emb"].device
         self.meter = RTFMeter()
         # auto language detection for multilingual checkpoints when no
@@ -186,7 +209,44 @@ class ASRPipeline:
                     return_timestamps, prompt: Any | None = None
                     ) -> list[dict]:
         """Batch chunk windows into [B, n_samples] device batches and
-        decode each with the seek-loop generate."""
+        decode each with the seek-loop generate; on a mesh, rank 0 sends
+        the call to the other ranks first."""
+        if self.mesh is not None:
+            if dist.get_rank() != 0:
+                raise RuntimeError("on a mesh, rank 0 makes the calls; "
+                                   "the other ranks run pipe.follow()")
+            dist.broadcast_object_list(
+                [((chunks, n_samples, return_timestamps, prompt),
+                  (self.gen_opts, self.pipe_opts, self.detect_language))],
+                src=0)
+        return self._decode_chunks(chunks, n_samples, return_timestamps,
+                                   prompt)
+
+    def follow(self) -> None:
+        """On a mesh rank other than 0: run each batch rank 0 sends, until
+        rank 0 calls ``close()``."""
+        if self.mesh is None or dist.get_rank() == 0:
+            raise RuntimeError("follow() runs on the mesh ranks other "
+                               "than 0")
+        while True:
+            box: list = [None]
+            dist.broadcast_object_list(box, src=0)
+            if box[0] is None:
+                return
+            call, (self.gen_opts, self.pipe_opts,
+                   self.detect_language) = box[0]
+            self._decode_chunks(*call)
+
+    def close(self) -> None:
+        """On rank 0 of a mesh: end the other ranks' ``follow()``. Does
+        nothing off a mesh."""
+        if self.mesh is not None:
+            dist.broadcast_object_list([None], src=0)
+
+    @torch.inference_mode()
+    def _decode_chunks(self, chunks: list[Chunk], n_samples: int,
+                       return_timestamps, prompt: Any | None = None
+                       ) -> list[dict]:
         bs = self.pipe_opts.batch_size
         want_words = return_timestamps == "word"
         opts = self.gen_opts
@@ -200,6 +260,11 @@ class ASRPipeline:
                 **{**opts.__dict__,
                    "prompt_ids": tuple(int(t) for t in ids)})
 
+        data_shard = None
+        if self.mesh is not None:
+            from ..parallel.mesh import data_sharding
+            data_shard = data_sharding(self.mesh)
+
         outputs: list[dict] = [None] * len(chunks)  # type: ignore
         for start in range(0, len(chunks), bs):
             group = chunks[start:start + bs]
@@ -210,6 +275,10 @@ class ASRPipeline:
                 gb = bs
             else:
                 gb = min(1 << max(len(group) - 1, 0).bit_length(), bs)
+            if data_shard is not None:
+                # every data rank gets rows (reference asr.py:240-246)
+                data = data_shard.axis.size
+                gb = -(-gb // data) * data
             batch = np.zeros((gb, n_samples), np.float32)
             num_frames = np.full((gb,), n_samples // self.feat_cfg.hop_length,
                                  np.int64)
@@ -232,6 +301,7 @@ class ASRPipeline:
                            language_token=lang_tok,
                            detect_language_first=(self.detect_language
                                                   and lang_tok is None),
+                           batch_sharding=data_shard,
                            assistant=assistant)
             for i, c in enumerate(group):
                 segs = gen.segments[i]

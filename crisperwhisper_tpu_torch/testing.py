@@ -247,7 +247,7 @@ def to_device(tree, device):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 def tree_mismatch(ref, got, device: str | None = None) -> list[str]:
@@ -1078,3 +1078,533 @@ def serving_gap(out: dict) -> float:
         gap = max(gap, result_gap(ref, res))
         prefix_stable(partials, res)
     return gap
+
+
+# ---------------------------------------------------------------------------
+# Worlds of ranks (parallel/): the spawner the tests and chip_smoke.py share
+# ---------------------------------------------------------------------------
+
+RANK_RESULT = "cw-rank-result "      # the line a rank prints its result on
+COLLECTIVE_TIMEOUT_S = 60.0          # a collective that waits longer fails
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(world: int, target: str, kwargs: dict | None = None, *,
+              backend: str = "gloo", device: str = "cpu",
+              timeout: float = 300.0, env: dict | None = None
+              ) -> list[dict]:
+    """Spawn ``world`` ranks of one process group on a free localhost
+    port; each runs ``target`` ("module:function", imported from the
+    repo's root) with ``kwargs`` and returns a JSON-able dict. Returns the
+    ranks' dicts by rank. ``device`` "cuda" puts rank r on card r modulo
+    the card count (two ranks share one card under gloo). Every child is
+    killed once ``timeout`` seconds have passed, and its collectives fail
+    after COLLECTIVE_TIMEOUT_S; a rank that fails or is killed raises
+    RuntimeError with the end of its output."""
+    import subprocess
+    import sys
+    import tempfile
+    import time
+    spec = json.dumps({"world": world, "port": free_port(),
+                       "target": target, "kwargs": kwargs or {},
+                       "backend": backend, "device": device})
+    child_env = {**os.environ, **(env or {}), "CW_RANK_SPEC": spec,
+                 "PYTHONPATH": os.pathsep.join(
+                     [_REPO] + [p for p in [os.environ.get("PYTHONPATH")]
+                                if p])}
+    if device == "cpu":
+        child_env["OMP_NUM_THREADS"] = "1"
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in range(world)]
+    code = ("import sys; from crisperwhisper_tpu_torch.testing import "
+            "rank_main; sys.exit(rank_main())")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)],
+                              stdout=log, stderr=subprocess.STDOUT,
+                              cwd=_REPO, env=child_env)
+             for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith(RANK_RESULT)]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(
+                f"rank {r} of {world} ({target}) exited {p.returncode}"
+                f"{' at the time limit' if p.returncode == -9 else ''}:\n"
+                + out[-6000:])
+        results.append(json.loads(lines[-1][len(RANK_RESULT):]))
+    return results
+
+
+def rank_main() -> int:
+    """A child of ``run_world``: join the process group, run the target,
+    print its result on a RANK_RESULT line."""
+    import importlib
+    import sys
+    import torch.distributed as dist
+    from .parallel import init_multihost
+    rank = int(sys.argv[1])
+    spec = json.loads(os.environ["CW_RANK_SPEC"])
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+        ids = None
+    else:
+        ids = [rank % torch.cuda.device_count()]
+    init_multihost(f"127.0.0.1:{spec['port']}", spec["world"], rank,
+                   local_device_ids=ids, backend=spec["backend"],
+                   timeout=COLLECTIVE_TIMEOUT_S)
+    module, name = spec["target"].split(":")
+    try:
+        result = getattr(importlib.import_module(module), name)(
+            **spec["kwargs"])
+    finally:
+        dist.destroy_process_group()
+    print(RANK_RESULT + json.dumps(result), flush=True)
+    return 0
+
+
+def gather_rows(x: np.ndarray, mesh) -> np.ndarray:
+    """Every data rank's rows of a host array, in data-rank order."""
+    import torch.distributed as dist
+    from .parallel.mesh import DATA, axis_shard
+    axis = axis_shard(mesh, DATA)
+    parts: list = [None] * axis.size
+    dist.all_gather_object(parts, np.asarray(x), group=axis.group)
+    return np.concatenate(parts)
+
+
+def rows_of(x, mesh):
+    """This rank's rows of a batch split over the mesh's data axis."""
+    from .parallel.mesh import DATA, axis_shard
+    axis = axis_shard(mesh, DATA)
+    k = x.shape[0] // axis.size
+    return x[axis.index * k:(axis.index + 1) * k]
+
+
+def param_bytes(params) -> int:
+    """Bytes of every tensor in a parameter tree."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_bytes(v) for v in params)
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    return 0
+
+
+def unflatten(flat: dict) -> dict:
+    """{"a/b/c": x} -> {"a": {"b": {"c": x}}}."""
+    out: dict = {}
+    for key, value in flat.items():
+        node = out
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = value
+    return out
+
+
+def mesh_greedy(params, arch: WhisperArch, mel: np.ndarray, mesh,
+                max_new: int, cross_dtype: str | None = None) -> dict:
+    """Encode this data rank's rows of ``mel`` and decode ``max_new``
+    greedy tokens from <|startoftranscript|> (the JAX package's
+    tests/test_parallel.py decode); the whole batch's sequences and
+    log-probability sums, gathered over the data axis."""
+    from .config import GenerationOptions
+    from .decoding.greedy import greedy_decode
+    from .models.whisper import encode
+    from .parallel.mesh import mesh_device
+    dev = mesh_device(mesh) if mesh is not None else torch.device("cpu")
+    rows = rows_of(mel, mesh) if mesh is not None else mel
+    enc = encode(params, arch, torch.from_numpy(rows).to(dev))
+    prompt = torch.full((rows.shape[0], 1), TINY_SPECIALS.sot)
+    res = greedy_decode(params, arch, TINY_SPECIALS,
+                        GenerationOptions(max_initial_timestamp_index=50),
+                        enc, prompt, max_new_tokens=max_new,
+                        cross_cache_dtype=cross_dtype)
+    seqs, slp = res.sequences.cpu().numpy(), res.sum_logprobs.cpu().numpy()
+    if mesh is not None:
+        seqs, slp = gather_rows(seqs, mesh), gather_rows(slp, mesh)
+    return {"sequences": seqs.tolist(), "sum_logprobs": slp.tolist()}
+
+
+def tiny_mesh_options():
+    """The TINY pipeline options of the JAX package's mesh tests
+    (tests/test_parallel.py:75-83): three alignment heads, one
+    temperature, 16 new tokens, batch size 2, word timestamps."""
+    from .config import GenerationOptions, PipelineOptions
+    return (GenerationOptions(
+        alignment_heads=((0, 1), (1, 3), (0, 2)), median_filter_width=7,
+        max_initial_timestamp_index=50, compression_ratio_threshold=None,
+        logprob_threshold=None, no_speech_threshold=None,
+        temperatures=(0.0,), max_new_tokens=16),
+        PipelineOptions(chunk_length_s=CHUNK_S, batch_size=2,
+                        return_timestamps="word"))
+
+
+def call_with_tokens(pipe, request) -> tuple[dict, list[list[int]]]:
+    """``pipe(request)`` with word timestamps, and the tokens of each of
+    its chunks as ``_run_chunks`` returned them."""
+    tokens: list[list[int]] = []
+    inner = pipe._run_chunks
+
+    def spy(*a, **kw):
+        out = inner(*a, **kw)
+        tokens.extend(o["tokens"][0].tolist() for o in out)
+        return out
+
+    pipe._run_chunks = spy
+    try:
+        return pipe(request, return_timestamps="word"), tokens
+    finally:
+        del pipe._run_chunks
+
+
+def serve_on_mesh(pipe, request, streams: int = 3, timed: bool = False
+                  ) -> dict:
+    """On rank 0: ``call_with_tokens(pipe, request)``; with ``timed`` the
+    request again on the host clock (its wall seconds, after a synchronize
+    on the card); then ``streams`` copies of it through a
+    StreamingBatcher; then close the followers. On the other ranks: follow
+    rank 0 until it closes. Rank 0 returns {"direct": [result], "tokens":
+    [[ids] per chunk], "wall": s or None, "streams": [results]}; the
+    others {}."""
+    import time
+    import torch.distributed as dist
+    from .serving import StreamingBatcher
+    if dist.get_rank() != 0:
+        pipe.follow()
+        return {}
+    wall, served = None, []
+    try:
+        direct, tokens = call_with_tokens(pipe, request)
+        if timed:
+            t0 = time.perf_counter()
+            pipe(request, return_timestamps="word")
+            if pipe.device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if streams:
+            batcher = StreamingBatcher(pipe)
+            try:
+                handles = [batcher.submit(request) for _ in range(streams)]
+                served = [h.result(timeout=600) for h in handles]
+            finally:
+                batcher.shutdown()
+    finally:
+        pipe.close()
+    return {"direct": [direct], "tokens": tokens, "wall": wall,
+            "streams": served}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of the main path's kernels in this process: encoder
+    attention (also by route), alignment prep, DTW and the ring write."""
+    from .ops import align_prep, dtw, fused_attention, ring_write
+    fa = fused_attention.fused_attention
+    return {"encoder_attention": fa.launches,
+            **{f"encoder_attention_{k}": v
+               for k, v in fa.route_launches.items()},
+            "align_prep": align_prep.align_prep.launches,
+            "dtw": dtw.dtw.launches,
+            "ring_write": ring_write.write_block_columns_group.launches}
+
+
+def _slice_pipeline(ckpt: str, params, max_new: int | None,
+                    language: str | None, mesh=None, assistant=None):
+    """The pipeline ``mesh_slice`` and ``unsharded_slice`` serve: batch
+    size 8, word timestamps, one temperature, on ``params`` (the whole
+    tree; on a mesh each rank cuts its slices), with ``assistant``."""
+    from dataclasses import replace
+    from .config import PipelineOptions
+    from .hub import load_pipeline
+    chunk = 30 if params["encoder"]["pos"].shape[0] == 1500 else CHUNK_S
+    dtype = params["decoder"]["tok_emb"].dtype
+    pipe = load_pipeline(ckpt, params=params, mesh=mesh, dtype=dtype,
+                         device=(None if mesh is not None
+                                 else params["decoder"]["tok_emb"].device),
+                         language=language, assistant=assistant,
+                         pipe_opts=PipelineOptions(chunk_length_s=chunk,
+                                                   batch_size=8,
+                                                   return_timestamps="word"))
+    pipe.gen_opts = replace(pipe.gen_opts, temperatures=(0.0,))
+    if max_new is not None:
+        pipe.gen_opts = replace(pipe.gen_opts, max_new_tokens=max_new,
+                                force_unique_generate_call=True)
+    return pipe
+
+
+def slice_params(ckpt: str, dtype: str, device: str = "cuda"):
+    """``init_params`` of the checkpoint's architecture from seed 0 on
+    ``device``, in ``dtype`` ("float32", "bfloat16"): the same tree in
+    every process."""
+    from .config import load_checkpoint_configs
+    from .models.whisper import init_params
+    arch = WhisperArch.from_hf_config(load_checkpoint_configs(ckpt)["config"])
+    return init_params(arch, torch.Generator(device=device).manual_seed(0),
+                       device, getattr(torch, dtype))
+
+
+def unsharded_slice(ckpt: str, seconds: float, dtype: str,
+                    max_new: int | None = None,
+                    language: str | None = None,
+                    device: str = "cuda") -> dict:
+    """``mesh_slice``'s request on one device, off any mesh: {"direct":
+    [result], "tokens": [[ids] per chunk]}. TF32 is off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = _slice_pipeline(ckpt, slice_params(ckpt, dtype, device), max_new,
+                           language)
+    res, tokens = call_with_tokens(
+        pipe, {"raw": tone_audio(seconds, 2), "sampling_rate": SR})
+    return {"direct": [res], "tokens": tokens}
+
+
+def _reset_launches() -> None:
+    """Set every counter ``launch_counts`` reads to 0."""
+    from .ops import align_prep, dtw, fused_attention, ring_write
+    for w in (fused_attention.fused_attention, align_prep.align_prep,
+              dtw.dtw, ring_write.write_block_columns_group):
+        w.launches = 0
+    fused_attention.fused_attention.route_launches = dict.fromkeys(
+        fused_attention.ROUTES, 0)
+
+
+def mesh_slice(ckpt: str, seconds: float, dtypes: list[str],
+               streams: int = 3, max_new: int | None = None,
+               language: str | None = None, device: str = "cuda",
+               assistants: list[str] = ()) -> dict:
+    """One rank of the model-parallel pipeline on ``device`` (the card,
+    or "cpu" for a rehearsal on gloo CPU ranks): the mesh is
+    1 x world over the process group. For each dtype: ``slice_params``
+    (the same weights on every rank), cut to this rank's slices by
+    load_pipeline(mesh=), serving ``tone_audio(seconds, 2)`` through
+    ``serve_on_mesh`` (the batcher on the last dtype, the timed repeat
+    on the others), then the last dtype's pipeline with each of
+    ``assistants`` (no batcher). TF32 is off.
+    Returns per dtype this rank's share of the replicated parameter bytes,
+    the head counts the encoder attention saw, the kernel launches, and
+    on rank 0 serve_on_mesh's results; per assistant the launches and on
+    rank 0 the results. ``max_new`` bounds each window to one seek pass of
+    that many new tokens."""
+    import torch.distributed as dist
+    from .models import whisper
+    from .parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(1, dist.get_world_size(), device=device)
+    req = {"raw": tone_audio(seconds, 2), "sampling_rate": SR}
+    heads: list[int] = []
+    inner = whisper.fused_attention
+
+    def seen(q, k, v):
+        heads.append(int(q.shape[1]))
+        return inner(q, k, v)
+
+    out = {"rank": dist.get_rank(), "runs": {}, "assistants": {}}
+    whisper.fused_attention = seen
+    try:
+        for i, name in enumerate(dtypes):
+            whole = slice_params(ckpt, name, device)
+            replicated_bytes = param_bytes(whole)
+            pipe = _slice_pipeline(ckpt, whole, max_new, language, mesh)
+            del whole
+            _reset_launches()
+            heads.clear()
+            last = i == len(dtypes) - 1
+            run = serve_on_mesh(pipe, req, streams if last else 0,
+                                timed=not last)
+            out["runs"][name] = {
+                "param_share": param_bytes(pipe.params) / replicated_bytes,
+                "heads": sorted(set(heads)), "launches": launch_counts(),
+                **run}
+            del pipe
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        for mode in assistants:
+            pipe = _slice_pipeline(ckpt, slice_params(ckpt, dtypes[-1],
+                                                      device),
+                                   max_new, language, mesh, assistant=mode)
+            _reset_launches()
+            run = serve_on_mesh(pipe, req, 0)
+            out["assistants"][mode] = {"launches": launch_counts(), **run}
+            del pipe
+    finally:
+        whisper.fused_attention = inner
+    return out
+
+
+def _raises(fn, match: str) -> bool:
+    try:
+        fn()
+    except ValueError as e:
+        return match in str(e)
+    return False
+
+
+def parallel_scenarios(ckpt: str, inputs: str, out: str, model: int
+                       ) -> dict:
+    """Every CPU scenario of tests/test_torch_parallel.py on one rank of a
+    gloo world of CPU ranks, on a (world / model) x model mesh, at TINY
+    f32. ``inputs``: an .npz with "mel" [4, 80, 500], "audio" and the JAX
+    package's init_params tree ("jax/<path>" keys). Writes this rank's
+    sharded and unsharded encoder states to ``out``/enc_<rank>.npz."""
+    from dataclasses import replace
+    import torch.distributed as dist
+    from .hub import load_pipeline
+    from .models.loader import params_from_jax
+    from .models.quantize import fuse_decoder_qkv, quantize_decoder_weights
+    from .models.whisper import encode, init_cache
+    from .ops import decode_step as step_kernel
+    from .decoding.longform import _check_agreement, generate
+    from .parallel import (data_sharding, host_local_array, make_mesh,
+                           make_serving_mesh, process_local_batch,
+                           shard_params)
+    from .pipeline.asr import ASRPipeline
+    rank, world = dist.get_rank(), dist.get_world_size()
+    data = world // model
+    arch = WhisperArch(**TINY)
+    npz = np.load(inputs)
+    mel = npz["mel"]
+    tree = unflatten({k[4:]: npz[k] for k in npz.files
+                      if k.startswith("jax/")})
+    params = params_from_jax(tree, arch)
+    mesh = make_mesh(data, model, device="cpu")
+    r: dict = {"rank": rank, "world": world}
+
+    # the partitioning audit of dryrun_multichip, and the tensor-parallel
+    # encoder against the unsharded one on this rank's rows
+    sharded = shard_params(params, mesh)
+    r["param_share"] = param_bytes(sharded) / param_bytes(params)
+    mine = torch.from_numpy(rows_of(mel, mesh))
+    enc_tp, enc_one = encode(sharded, arch, mine), encode(params, arch, mine)
+    np.savez(os.path.join(out, f"enc_{rank}.npz"), tp=enc_tp.numpy(),
+             one=enc_one.numpy(), rows=rows_of(np.arange(len(mel)), mesh))
+
+    # greedy decode, plain and int8 (unfused) weights with an int8 cross
+    # cache, on the mesh and on this rank alone
+    r["greedy"] = mesh_greedy(sharded, arch, mel, mesh, 8)
+    r["greedy_one"] = mesh_greedy(params, arch, mel, None, 8)
+    q8 = quantize_decoder_weights(params)
+    r["int8"] = mesh_greedy(shard_params(q8, mesh), arch, mel, mesh, 8,
+                            "int8")
+    r["int8_one"] = mesh_greedy(q8, arch, mel, None, 8, "int8")
+
+    # kernel 5's gate: the fused serving tree on one rank passes its
+    # weight test, a mesh's serving tree (unfused) and a fused tree sharded
+    # over the mesh do not
+    serving = load_pipeline(ckpt, dtype=torch.float32, mesh=mesh,
+                            quantize="serving")
+    one = quantize_decoder_weights(fuse_decoder_qkv(params, arch.head_dim))
+    cache = init_cache(params, arch, encode(params, arch, mine[:1]),
+                       cache_len=8, cross_dtype="int4", self_dtype="int8")
+    r["gate"] = {
+        "one_rank_fused": step_kernel._quantized(one, cache),
+        "mesh_serving": step_kernel._quantized(serving.params, cache),
+        "mesh_fused": step_kernel._quantized(shard_params(one, mesh), cache)}
+    del serving
+
+    # the mesh and multihost helpers' errors and results
+    r["needs"] = _raises(lambda: make_mesh(world, 2, device="cpu"),
+                         f"needs {2 * world} devices")
+    r["device_mismatch"] = _raises(
+        lambda: load_pipeline(ckpt, device="cuda:1", mesh=mesh), "device=")
+    r["divide"] = _raises(lambda: make_serving_mesh(model=3, device="cpu"),
+                          "must divide")
+    r["data_axis"] = _raises(
+        lambda: make_serving_mesh(model=2, data=data + 1, device="cpu"),
+        "data axis")
+    r["multiple"] = _raises(lambda: ASRPipeline(
+        params, arch, None, specials=TINY_SPECIALS,
+        pipe_opts=replace(tiny_mesh_options()[1], batch_size=2 * data + 1),
+        mesh=mesh), "multiple") if data > 1 else None
+    smesh = make_serving_mesh(model=2, device="cpu")
+    r["serving_mesh"] = {"shape": list(smesh.shape),
+                         "names": list(smesh.mesh_dim_names),
+                         "model_group": dist.get_process_group_ranks(
+                             smesh.get_group("model"))}
+    r["local_batch"] = process_local_batch(8, smesh)
+    local = np.full((process_local_batch(2 * data, smesh), 8), rank + 1,
+                    np.float32)
+    arr = host_local_array(local, smesh)
+    total = arr.to_local().sum()
+    dist.all_reduce(total)
+    r["host_local"] = {"shape": list(arr.shape), "sum": float(total)}
+    r["serving_mesh_greedy"] = mesh_greedy(
+        shard_params(params, smesh), arch, mel, smesh, 6)
+
+    # the user-facing pipeline on the mesh: rank 0 makes the calls
+    gen, po = tiny_mesh_options()
+    pipe = load_pipeline(ckpt, dtype=torch.float32, mesh=mesh,
+                         gen_opts=gen, pipe_opts=po)
+    request = {"raw": npz["audio"], "sampling_rate": SR}
+    got = serve_on_mesh(pipe, request)
+    # speculative decoding on the mesh: prompt lookup (per-row ring writes
+    # into local-head rings) and a self-draft of the sharded tree's first
+    # layer
+    for mode in ("prompt_lookup", "self:1"):
+        spec = serve_on_mesh(load_pipeline(
+            ckpt, dtype=torch.float32, mesh=mesh, gen_opts=gen,
+            pipe_opts=po, assistant=mode), request, streams=0)
+        if rank == 0:
+            r[f"assistant_{mode}"] = spec["direct"][0]
+    # temperature fallback on the mesh: every window fails the log-prob
+    # gate until the last temperature, so the sampled windows decode. Each
+    # rank is handed a generator of its own seed; the mesh must draw what
+    # one process with rank 0's generator draws
+    fb = replace(gen, temperatures=(0.0, 0.5, 1.0), logprob_threshold=0.0)
+
+    def sampled(tree, seed, sharding):
+        out = generate(tree, arch, TINY_SPECIALS, fb, torch.from_numpy(mel),
+                       generator=torch.Generator().manual_seed(seed),
+                       batch_sharding=sharding)
+        return {"sequences": out.sequences.tolist(),
+                "token_timestamps": out.token_timestamps.tolist()}
+
+    r["fallback"] = {"mesh": sampled(sharded, 11 + rank, data_sharding(mesh)),
+                     "one": sampled(params, 11, None),
+                     "other_seed": sampled(params, 12, None)}
+    # the agreement check after each window: silent on equal tokens, a
+    # RuntimeError on every rank when one rank's differ
+    same = (np.zeros((2, 3), np.int64), np.full((2,), 3))
+    _check_agreement(same, torch.device("cpu"))
+    try:
+        _check_agreement((same[0] + (rank == world - 1), same[1]),
+                         torch.device("cpu"))
+        r["divergence_raises"] = False
+    except RuntimeError as e:
+        r["divergence_raises"] = "different tokens" in str(e)
+    fb_pipe = serve_on_mesh(load_pipeline(
+        ckpt, dtype=torch.float32, mesh=mesh, gen_opts=fb, pipe_opts=po),
+        request, streams=0)
+    if rank == 0:
+        ref = load_pipeline(ckpt, dtype=torch.float32, device="cpu",
+                            gen_opts=gen, pipe_opts=po)
+        r["pipeline"] = got
+        r["pipeline_one"] = ref(request, return_timestamps="word")
+        ref.gen_opts = fb
+        r["fallback"]["pipeline"] = fb_pipe["direct"][0]
+        r["fallback"]["pipeline_one"] = ref(request, return_timestamps="word")
+    return r

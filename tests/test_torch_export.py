@@ -88,7 +88,7 @@ def test_save_hf_checkpoint_loads_back_in_both_packages(weights, tmp_path,
     params = params_from_state_dict(weights["sd"], arch, dtype)
     d = str(tmp_path / "ckpt")
     save_hf_checkpoint(d, params, arch, config_extra={"median_filter_width": 7})
-    back, arch2 = load_params(d, dtype=dtype)
+    back, arch2 = load_params(d, dtype=dtype, device="cpu")
     assert asdict(arch2) == asdict(arch)
     _assert_same_tree(params, back)
     with open(os.path.join(d, "config.json")) as f:

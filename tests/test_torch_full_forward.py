@@ -341,7 +341,8 @@ def test_monitor_progress_matches_jax(weights, short_form_setup):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("package", ["audio", "decoding", "models", "ops"])
+@pytest.mark.parametrize("package", ["audio", "decoding", "models", "ops",
+                                     "parallel"])
 def test_package_public_names_match_jax(package):
     """Each package exports the JAX package's public names but for the
     JAX-only ones (jitted entries, the Pallas probe, the int8 test

@@ -1296,3 +1296,57 @@ def test_checkpoint_round_trips_onto_the_card(gen, tmp_path):
     back, _ = load_params(str(tmp_path / "hf"), dtype=torch.float32,
                           device="cuda")
     assert testing.tree_mismatch(params, back, "cuda") == []
+
+
+def _same_slice(ref: dict, got: dict, band: float) -> None:
+    """Equal chunk tokens, text and words; word timestamps within band."""
+    assert got["tokens"] == ref["tokens"]
+    r, g = ref["direct"][0], got["direct"][0]
+    assert g["chunks"] and g["text"] == r["text"]
+    assert [c["text"] for c in g["chunks"]] == [c["text"]
+                                                for c in r["chunks"]]
+    assert max(abs(x - y) for a, b in zip(r["chunks"], g["chunks"])
+               for x, y in zip(a["timestamp"], b["timestamp"])) <= band
+
+
+def test_mesh_pipeline_of_one_nccl_rank_equals_unsharded(gen, tmp_path):
+    """load_pipeline(mesh=) on a 1 x 1 mesh, a world of one over NCCL: the
+    TINY f32 slice equal to the same slice off any mesh."""
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    (got,) = testing.run_world(
+        1, "crisperwhisper_tpu_torch.testing:mesh_slice",
+        {"ckpt": ckpt, "seconds": 12.0, "dtypes": ["float32"],
+         "streams": 0}, backend="nccl", device="cuda", timeout=300)
+    run = got["runs"]["float32"]
+    _same_slice(testing.unsharded_slice(ckpt, 12.0, "float32"), run, 1e-4)
+    assert run["launches"]["encoder_attention"] > 0
+    assert run["launches"]["dtw"] > 0 and run["launches"]["align_prep"] > 0
+
+
+def test_mesh_pipeline_two_ranks_on_card_matches_unsharded(gen, tmp_path):
+    """Two ranks at model=2 (gloo on one card, NCCL on two): the TINY f32
+    slice's tokens equal to the unsharded run's, each rank's encoder
+    attention at 2 of the 4 heads and under 0.775 of the replicated
+    parameter bytes, three streams through a StreamingBatcher on rank 0
+    equal to the direct call, and prompt lookup on the mesh (the
+    ring-write kernel on local-head rings) equal to its greedy result."""
+    ckpt = testing.write_tiny_configs(str(tmp_path / "ckpt"))
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    ranks = testing.run_world(
+        2, "crisperwhisper_tpu_torch.testing:mesh_slice",
+        {"ckpt": ckpt, "seconds": 12.0, "dtypes": ["float32"],
+         "streams": 3, "assistants": ["prompt_lookup"]}, backend=backend,
+        device="cuda", timeout=300)
+    run = ranks[0]["runs"]["float32"]
+    _same_slice(testing.unsharded_slice(ckpt, 12.0, "float32"), run,
+                testing.TS_BAND)
+    for r in ranks:
+        assert r["runs"]["float32"]["heads"] == [2]
+        assert r["runs"]["float32"]["param_share"] < 0.55 + 0.45 / 2
+        assert r["assistants"]["prompt_lookup"]["launches"]["ring_write"] > 0
+    direct = run["direct"][0]
+    assert len(run["streams"]) == 3
+    for s in run["streams"]:
+        assert testing.result_gap(direct, s) <= testing.TS_BAND
+    _same_slice(run, ranks[0]["assistants"]["prompt_lookup"],
+                testing.TS_BAND)

@@ -66,7 +66,8 @@ def test_load_params_reads_safetensors_files(weights, tmp_path):
     sd = {k: torch.from_numpy(v).contiguous()
           for k, v in weights["sd"].items() if k != "proj_out.weight"}
     save_file(sd, os.path.join(tmp_path, "model.safetensors"))
-    params, _ = load_params(str(tmp_path), arch, dtype=torch.float32)
+    params, _ = load_params(str(tmp_path), arch, dtype=torch.float32,
+                            device="cpu")
     _assert_same_params(params, weights["torch"])
 
     half = {k: v.bfloat16() for k, v in sd.items()}
@@ -79,6 +80,20 @@ def test_load_params_reads_safetensors_files(weights, tmp_path):
     assert p16["decoder"]["layers"][0]["ln1"]["scale"].dtype == torch.float32
     assert p16["decoder"]["tok_emb"].dtype == torch.bfloat16
 
+
+
+def test_load_params_runs_on_the_card_unless_asked(weights, tmp_path):
+    """load_params names no device -> the card; without one that is a
+    RuntimeError naming device="cpu", never a silent CPU load."""
+    from safetensors.torch import save_file
+    from crisperwhisper_tpu_torch.models.loader import load_params
+    if torch.cuda.is_available():
+        pytest.skip("the card is present: load_params loads onto it")
+    save_file({k: torch.from_numpy(v).contiguous()
+               for k, v in weights["sd"].items() if k != "proj_out.weight"},
+              os.path.join(tmp_path, "model.safetensors"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        load_params(str(tmp_path), weights["arch"], dtype=torch.float32)
 
 def test_init_params_mirrors_jax_init(weights):
     """Same tree, shapes and dtypes as the JAX init; the reference's

@@ -48,6 +48,10 @@ import crisperwhisper_tpu_torch.utils.checkpoint
 import crisperwhisper_tpu_torch.tokenizer.synthetic
 import crisperwhisper_tpu_torch.decoding.generate
 import crisperwhisper_tpu_torch.models.quantize
+import crisperwhisper_tpu_torch.parallel
+import crisperwhisper_tpu_torch.parallel.mesh
+import crisperwhisper_tpu_torch.parallel.multihost
+import crisperwhisper_tpu_torch.parallel.dryrun
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "crisperwhisper_tpu"))
 print(",".join(loaded))
