@@ -237,7 +237,9 @@ def assisted_decode(params: Any, arch: WhisperArch,
     steps = torch.arange(s, device=dev)
     lengths_h = np.full((b,), p, np.int64)
     finished_h = np.zeros((b,), bool)
+    blocks = 0
     while (~finished_h & (lengths_h < t_total)).any():
+        blocks += 1
         lengths = torch.from_numpy(lengths_h).to(dev)
         feed0 = tokens.gather(1, lengths[:, None] - 1)[:, 0]
         if use_draft_model:
@@ -324,4 +326,5 @@ def assisted_decode(params: Any, arch: WhisperArch,
         num_generated=state.num_generated,
         sum_logprobs=sum_lp,
         no_speech_probs=no_speech,
-        align_probs=align_buf[:, :, 1:1 + max_new_tokens].contiguous())
+        align_probs=align_buf[:, :, 1:1 + max_new_tokens].contiguous(),
+        steps=blocks)

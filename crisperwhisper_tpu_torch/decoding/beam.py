@@ -49,12 +49,14 @@ class BeamResult:
     sequences_scores: [B] f32 — sum logprob / len**length_penalty.
     no_speech_probs: [B] f32 — from beam 0's raw logits at the SOT slot.
     align_probs: [B, A, max_new, K] f32 — the top hypothesis' rows.
+    steps: host int — iterations of the decode loop after the prefill.
     """
     sequences: torch.Tensor
     num_generated: torch.Tensor
     sequences_scores: torch.Tensor
     no_speech_probs: torch.Tensor
     align_probs: torch.Tensor
+    steps: int
 
 
 def top_k_stable(x: torch.Tensor, k: int
@@ -284,4 +286,5 @@ def beam_decode(params, arch: WhisperArch, specials: SpecialTokens,
         num_generated=all_lens.gather(1, pick)[:, 0],
         sequences_scores=masked.gather(1, pick)[:, 0],
         no_speech_probs=no_speech,
-        align_probs=_take(torch.cat([fin_align, align_buf], 1), pick)[:, 0])
+        align_probs=_take(torch.cat([fin_align, align_buf], 1), pick)[:, 0],
+        steps=t - p + 1)

@@ -4,7 +4,11 @@ Port of crisperwhisper_tpu/decoding/greedy.py. The reference runs the
 whole decode as one ``lax.while_loop``; here it is a Python loop over
 steps whose state stays on the device: prompt prefill, logits processing,
 sampling, grammar state, alignment capture and EOS bookkeeping. The host
-reads one flag per step (have all rows finished?).
+reads one flag per step (have all rows finished?). Each iteration runs
+three spans (utils/tracing.py): ``cw.decode.step`` (the model step),
+``cw.decode.select`` (processors, token choice and bookkeeping) and
+``cw.decode.sync`` (that read); the cache build and the prompt prefill
+are ``cw.decode.cache`` and ``cw.decode.prefill``.
 
 With ``opts.b1_decode_kernel`` and a quantized serving cache, each step
 runs as one whole-step kernel (ops/decode_step.py): ``decode_step_b1`` at
@@ -25,6 +29,7 @@ from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
 from ..models.whisper import decode_step, decode_step_multi, init_cache
 from ..ops import decode_step as step_kernel
+from ..utils.tracing import trace_span
 from .processors import TimestampState, process_scores
 
 
@@ -40,12 +45,14 @@ class DecodeResult:
       SOT position (logits_process.py:2063-2121).
     align_probs: [B, A, max_new, K] f32 — alignment-head cross-attention
       rows for the generated query tokens (generation_whisper.py:336-337).
+    steps: host int — iterations of the decode loop after the prefill.
     """
     sequences: torch.Tensor
     num_generated: torch.Tensor
     sum_logprobs: torch.Tensor
     no_speech_probs: torch.Tensor
     align_probs: torch.Tensor
+    steps: int
 
 
 def _no_speech_prob(logits: torch.Tensor, no_speech: int) -> torch.Tensor:
@@ -111,9 +118,10 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     n_align = align_sel.shape[-1] if align_sel is not None else 1
     eot = specials.eot
 
-    cache = init_cache(params, arch, encoder_out, cache_len=t_total,
-                       cross_dtype=cross_cache_dtype,
-                       self_dtype=self_cache_dtype)
+    with trace_span("cw.decode.cache", rows=b):
+        cache = init_cache(params, arch, encoder_out, cache_len=t_total,
+                           cross_dtype=cross_cache_dtype,
+                           self_dtype=self_cache_dtype)
     prompt = prompt.to(device=dev, dtype=torch.long)
     tokens = torch.cat([prompt, torch.full((b, max_new_tokens), eot,
                                            dtype=torch.long, device=dev)], 1)
@@ -125,12 +133,13 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     no_speech = torch.zeros((b,), dtype=torch.float32, device=dev)
     t = 0
     if p > 1:
-        prefill_logits, cache, _ = decode_step_multi(
-            params, arch, prompt[:, :p - 1], 0, cache, key_mask=key_mask,
-            pos_offset=pos_offset)
-        if sot_position <= p - 2:
-            no_speech = _no_speech_prob(prefill_logits[:, sot_position],
-                                        specials.no_speech)
+        with trace_span("cw.decode.prefill", rows=b, tokens=p - 1):
+            prefill_logits, cache, _ = decode_step_multi(
+                params, arch, prompt[:, :p - 1], 0, cache,
+                key_mask=key_mask, pos_offset=pos_offset)
+            if sot_position <= p - 2:
+                no_speech = _no_speech_prob(prefill_logits[:, sot_position],
+                                            specials.no_speech)
         t = p - 1
 
     state = TimestampState.init(b, dev)
@@ -156,45 +165,54 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
             return decode_step(*a, key_mask=key_mask, pos_offset=pos_offset,
                                **kw)
 
-    while t < t_total - 1 and not bool(finished.all()):
-        logits, cache, align = step(params, arch, tokens[:, t], t, cache,
-                                    align_sel=align_sel)
-        if t >= p:
-            # record alignment rows for generated-query steps
-            slot = align_buf[:, :, t - p]
-            slot.copy_(torch.where(finished[:, None, None], slot, align))
-        if t == sot_position:
-            # no-speech prob from the RAW logits of the step whose input
-            # is <|startoftranscript|> (logits_process.py:2099-2105)
-            no_speech = _no_speech_prob(logits, specials.no_speech)
+    # whether every row has finished is read after each step (before the
+    # first, no row has)
+    while t < t_total - 1:
+        with trace_span("cw.decode.step"):
+            logits, cache, align = step(params, arch, tokens[:, t], t,
+                                        cache, align_sel=align_sel)
+        with trace_span("cw.decode.select"):
+            if t >= p:
+                # record alignment rows for generated-query steps
+                slot = align_buf[:, :, t - p]
+                slot.copy_(torch.where(finished[:, None, None], slot, align))
+            if t == sot_position:
+                # no-speech prob from the RAW logits of the step whose input
+                # is <|startoftranscript|> (logits_process.py:2099-2105)
+                no_speech = _no_speech_prob(logits, specials.no_speech)
 
-        scores = process_scores(logits, state, specials, opts,
-                                suppress_mask, begin_suppress_mask,
-                                return_timestamps)
-        is_sampling_step = t >= p - 1
-        if not is_sampling_step:
-            next_tok = tokens[:, t + 1]             # forced prompt feed
-        elif temperature > 0:
-            probs = torch.softmax(scores / max(temperature, 1e-6), dim=-1)
-            next_tok = torch.multinomial(probs, 1,
-                                         generator=generator)[:, 0]
-        else:
-            next_tok = scores.argmax(dim=-1)
-        next_tok = torch.where(finished, eot, next_tok)
+            scores = process_scores(logits, state, specials, opts,
+                                    suppress_mask, begin_suppress_mask,
+                                    return_timestamps)
+            is_sampling_step = t >= p - 1
+            if not is_sampling_step:
+                next_tok = tokens[:, t + 1]             # forced prompt feed
+            elif temperature > 0:
+                probs = torch.softmax(scores / max(temperature, 1e-6), dim=-1)
+                next_tok = torch.multinomial(probs, 1,
+                                             generator=generator)[:, 0]
+            else:
+                next_tok = scores.argmax(dim=-1)
+            next_tok = torch.where(finished, eot, next_tok)
 
-        if is_sampling_step:
-            active = ~finished
-            chosen_lp = (scores.gather(1, next_tok[:, None])[:, 0]
-                         - torch.logsumexp(scores, dim=-1))
-            sum_logprobs += torch.where(active, chosen_lp, 0.0)
-            state = state.update(next_tok, specials.timestamp_begin) \
-                .where(active, state)
-            finished = finished | (active & (next_tok == eot))
-        tokens[:, t + 1] = next_tok
+            if is_sampling_step:
+                active = ~finished
+                chosen_lp = (scores.gather(1, next_tok[:, None])[:, 0]
+                             - torch.logsumexp(scores, dim=-1))
+                sum_logprobs += torch.where(active, chosen_lp, 0.0)
+                state = state.update(next_tok, specials.timestamp_begin) \
+                    .where(active, state)
+                finished = finished | (active & (next_tok == eot))
+            tokens[:, t + 1] = next_tok
         t += 1
+        with trace_span("cw.decode.sync"):
+            done = bool(finished.all())
+        if done:
+            break
 
     return DecodeResult(sequences=tokens.to(torch.int32),
                         num_generated=state.num_generated,
                         sum_logprobs=sum_logprobs,
                         no_speech_probs=no_speech,
-                        align_probs=align_buf)
+                        align_probs=align_buf,
+                        steps=t - p + 1)

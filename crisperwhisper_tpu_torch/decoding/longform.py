@@ -19,6 +19,11 @@ speculative output is pinned to plain greedy's, so the fallback gates see
 the same tokens. ``opts.prompt_ids`` and ``opts.condition_on_prev_tokens``
 prefix each window's init tokens with the user prompt or the previous
 segments' tokens (hf generation_whisper.py:1875-1943).
+
+Spans (utils/tracing.py): ``cw.seek`` a seek pass (live rows, bucket);
+in each window batch ``cw.encode``, ``cw.decode`` (rows, loop steps),
+``cw.align_tail`` and ``cw.readback``, the one wait; ``cw.segments`` the
+host bookkeeping after it (fallback gates, segment extraction).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
 from ..models.whisper import INT4, INT8, alignment_selector, encode
 from ..ops.alignment import attention_to_jump_times
+from ..utils.tracing import trace_span
 from .fallback import need_fallback
 from .generate import build_prompt
 from .greedy import greedy_decode
@@ -159,7 +165,9 @@ def _decode_rows(params, arch, specials, opts, segment_features, prompt,
     (draft_params, draft_arch) pair) a greedy window at temperature 0
     decodes speculatively (reference longform.py:77-111); sampled
     temperatures decode plainly."""
-    encoder_out = encode(params, arch, segment_features)
+    rows = segment_features.shape[0]
+    with trace_span("cw.encode", rows=rows):
+        encoder_out = encode(params, arch, segment_features)
     kw = dict(max_new_tokens=max_new, suppress_mask=suppress,
               begin_suppress_mask=begin_suppress, align_sel=align_sel,
               return_timestamps=opts.return_timestamps,
@@ -170,39 +178,45 @@ def _decode_rows(params, arch, specials, opts, segment_features, prompt,
     prompt = torch.from_numpy(prompt)
     use_beams = opts.num_beams > 1 and temperature == 0.0
     normalized = use_beams
-    if use_beams:
-        from .beam import beam_decode
-        res = beam_decode(params, arch, specials, opts, encoder_out, prompt,
-                          num_beams=opts.num_beams, **kw)
-        score = res.sequences_scores
-    elif assistant is not None and temperature == 0.0:
-        from .assisted import assisted_decode
-        draft_params = draft_arch = draft_enc = None
-        if assistant != "prompt_lookup":
-            draft_params, draft_arch = assistant
-            # a self-draft (no encoder of its own) reads the main states
-            draft_enc = (encode(draft_params, draft_arch, segment_features)
-                         if "encoder" in draft_params else encoder_out)
-        res = assisted_decode(params, arch, draft_params, draft_arch,
-                              specials, opts, encoder_out, draft_enc, prompt,
-                              spec_len=opts.assistant_spec_len, **kw)
-    else:
-        res = greedy_decode(params, arch, specials, opts, encoder_out,
-                            prompt, temperature=temperature,
-                            generator=generator, **kw)
+    with trace_span("cw.decode", rows=rows) as span:
+        if use_beams:
+            from .beam import beam_decode
+            res = beam_decode(params, arch, specials, opts, encoder_out,
+                              prompt, num_beams=opts.num_beams, **kw)
+            score = res.sequences_scores
+        elif assistant is not None and temperature == 0.0:
+            from .assisted import assisted_decode
+            draft_params = draft_arch = draft_enc = None
+            if assistant != "prompt_lookup":
+                draft_params, draft_arch = assistant
+                # a self-draft (no encoder of its own) reads the main states
+                draft_enc = (encode(draft_params, draft_arch,
+                                    segment_features)
+                             if "encoder" in draft_params else encoder_out)
+            res = assisted_decode(params, arch, draft_params, draft_arch,
+                                  specials, opts, encoder_out, draft_enc,
+                                  prompt, spec_len=opts.assistant_spec_len,
+                                  **kw)
+        else:
+            res = greedy_decode(params, arch, specials, opts, encoder_out,
+                                prompt, temperature=temperature,
+                                generator=generator, **kw)
+        span.count(steps=res.steps)
     if not use_beams:
         score = res.sum_logprobs
     outs = [res.sequences, res.num_generated, score, res.no_speech_probs]
     if align_sel is not None:
         # every row, full (1500 frames) or cropped, in one prep + one DTW
-        n_tokens = (res.num_generated - 1).clamp_min(0)
-        outs.append(attention_to_jump_times(
-            res.align_probs, opts.median_filter_width, n_tokens,
-            torch.as_tensor(dtw_frames, dtype=torch.int32)))
+        with trace_span("cw.align_tail", rows=rows):
+            n_tokens = (res.num_generated - 1).clamp_min(0)
+            outs.append(attention_to_jump_times(
+                res.align_probs, opts.median_filter_width, n_tokens,
+                torch.as_tensor(dtw_frames, dtype=torch.int32)))
     # single read-back: queue every device->host copy, then wait once
-    host = [x.to("cpu", non_blocking=True) for x in outs]
-    if encoder_out.device.type == "cuda":
-        torch.cuda.current_stream(encoder_out.device).synchronize()
+    with trace_span("cw.readback", rows=rows):
+        host = [x.to("cpu", non_blocking=True) for x in outs]
+        if encoder_out.device.type == "cuda":
+            torch.cuda.current_stream(encoder_out.device).synchronize()
     seqs, ngen, score, no_sp = (h.numpy() for h in host[:4])
     jump_times = None
     if align_sel is not None:
@@ -369,124 +383,138 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
         prompt_seeded = True
 
     while (seek < max_frames).any():
-        if monitor_progress is not None:
-            monitor_progress(np.stack([seek, max_frames], axis=1))
-        active = seek < max_frames
-        time_offset = seek.astype(np.float64) * opts.time_precision \
-            / INPUT_STRIDE
-        seek_num_frames = np.minimum(max_frames - seek, num_segment_frames)
+        with trace_span("cw.seek") as span:
+            if monitor_progress is not None:
+                monitor_progress(np.stack([seek, max_frames], axis=1))
+            active = seek < max_frames
+            time_offset = seek.astype(np.float64) * opts.time_precision \
+                / INPUT_STRIDE
+            seek_num_frames = np.minimum(max_frames - seek, num_segment_frames)
 
-        # --- dynamic batch shrink: live rows in a power-of-2 bucket;
-        # filler slots repeat the first live row and are discarded ---
-        idx = np.nonzero(active)[0]
-        nact = len(idx)
-        bucket = 1
-        while bucket < nact:
-            bucket *= 2
-        bucket = min(bucket, b)
-        rows = np.concatenate([idx, np.repeat(idx[:1], bucket - nact)])
+            # --- dynamic batch shrink: live rows in a power-of-2 bucket;
+            # filler slots repeat the first live row and are discarded ---
+            idx = np.nonzero(active)[0]
+            nact = len(idx)
+            bucket = 1
+            while bucket < nact:
+                bucket *= 2
+            bucket = min(bucket, b)
+            span.count(live=nact, bucket=bucket)
+            rows = np.concatenate([idx, np.repeat(idx[:1], bucket - nact)])
 
-        if (total_frames == num_segment_frames and nact == b
-                and not seek.any()
-                and bool(np.all(seek_num_frames == num_segment_frames))):
-            segment = feats          # one full window per row, all at 0
-        else:
-            segment = device_window(rows, seek[rows], seek_num_frames[rows])
+            if (total_frames == num_segment_frames and nact == b
+                    and not seek.any()
+                    and bool(np.all(seek_num_frames == num_segment_frames))):
+                segment = feats          # one full window per row, all at 0
+            else:
+                segment = device_window(rows, seek[rows],
+                                        seek_num_frames[rows])
 
-        if num_frames is not None:
-            dtw_frames = np.minimum((num_frames - seek) // 2,
-                                    arch.max_source_positions)
-            dtw_frames = np.maximum(dtw_frames, 1)
-        else:
-            dtw_frames = np.full((b,), arch.max_source_positions, np.int64)
+            if num_frames is not None:
+                dtw_frames = np.minimum((num_frames - seek) // 2,
+                                        arch.max_source_positions)
+                dtw_frames = np.maximum(dtw_frames, 1)
+            else:
+                dtw_frames = np.full((b,), arch.max_source_positions,
+                                     np.int64)
 
-        # the conditioned decoder prompt (hf _prepare_decoder_input_ids)
-        iter_prompt = init_tokens[rows]
-        iter_mask = None
-        iter_pos_offset = None
-        if (conditioning and do_condition[rows].any()
-                and any(len(current_segments[i]) for i in rows)):
-            prev_tok = pad_segments_to_max_length(
-                [current_segments[i] if do_condition[i] else []
-                 for i in rows],
-                specials.eot, padding_side="left", cut_off_length=cut_off,
-                bos_token=cond_bos, skip_ending_double_timestamps=True,
-                timestamp_begin=specials.timestamp_begin,
-                fixed_total_length=prev_width)
-            iter_prompt = np.concatenate(
-                [prev_tok.astype(np.int32), iter_prompt], axis=1)
-            iter_mask = np.concatenate(
-                [prev_tok != specials.eot,
-                 np.ones_like(init_tokens[rows], bool)], axis=1)
-            if opts.condition_mode == "dynamic":
-                # the pads are contiguous on the left, so each row's offset
-                # is its pad count
-                iter_pos_offset = (~iter_mask).sum(axis=1).astype(np.int32)
-        elif prompt_ids is not None:
-            # an unconditioned prompt prefixes the init tokens unmasked:
-            # its slots are attended and take positions (hf :1932-1936)
-            iter_prompt = np.concatenate(
-                [np.tile(prompt_ids, (len(rows), 1)), iter_prompt], axis=1)
-        p = iter_prompt.shape[1]
-        max_new = min(opts.max_new_tokens, arch.max_target_positions - p)
-        # the SOT slot inside the prompt: its raw logits carry
-        # P(<|nospeech|>)
-        sot_position = p - init_tokens.shape[1]
+            # the conditioned decoder prompt (hf _prepare_decoder_input_ids)
+            iter_prompt = init_tokens[rows]
+            iter_mask = None
+            iter_pos_offset = None
+            if (conditioning and do_condition[rows].any()
+                    and any(len(current_segments[i]) for i in rows)):
+                prev_tok = pad_segments_to_max_length(
+                    [current_segments[i] if do_condition[i] else []
+                     for i in rows],
+                    specials.eot, padding_side="left", cut_off_length=cut_off,
+                    bos_token=cond_bos, skip_ending_double_timestamps=True,
+                    timestamp_begin=specials.timestamp_begin,
+                    fixed_total_length=prev_width)
+                iter_prompt = np.concatenate(
+                    [prev_tok.astype(np.int32), iter_prompt], axis=1)
+                iter_mask = np.concatenate(
+                    [prev_tok != specials.eot,
+                     np.ones_like(init_tokens[rows], bool)], axis=1)
+                if opts.condition_mode == "dynamic":
+                    # the pads are contiguous on the left, so each row's
+                    # offset is its pad count
+                    iter_pos_offset = (~iter_mask).sum(axis=1).astype(
+                        np.int32)
+            elif prompt_ids is not None:
+                # an unconditioned prompt prefixes the init tokens unmasked:
+                # its slots are attended and take positions (hf :1932-1936)
+                iter_prompt = np.concatenate(
+                    [np.tile(prompt_ids, (len(rows), 1)), iter_prompt],
+                    axis=1)
+            p = iter_prompt.shape[1]
+            max_new = min(opts.max_new_tokens, arch.max_target_positions - p)
+            # the SOT slot inside the prompt: its raw logits carry
+            # P(<|nospeech|>)
+            sot_position = p - init_tokens.shape[1]
 
-        # --- temperature fallback ladder (generate_with_fallback) ---
-        resolved = np.zeros((bucket,), bool)
-        resolved[nact:] = True                         # filler slots
-        results: list[Any] = [None] * bucket
-        for t_idx, temperature in enumerate(opts.temperatures):
-            seqs, ngen, score, normalized, no_sp, jt = _decode_window(
-                params, arch, specials, opts, segment, iter_prompt, max_new,
-                suppress, begin_suppress, align_sel, float(temperature),
-                generator, dtw_frames[rows], prompt_mask=iter_mask,
-                sot_position=sot_position, assistant=assistant,
-                pos_offset=iter_pos_offset, batch_sharding=batch_sharding)
-            is_last = t_idx == len(opts.temperatures) - 1
-            for j in range(nact):
-                if resolved[j]:
-                    continue
-                g = int(ngen[j])
-                seq_with_eos = seqs[j, p:p + g]
-                avg_lp = (score[j] if normalized
-                          else (score[j] / g) if g > 0 else 0.0)
-                nf, skip = need_fallback(seq_with_eos, avg_lp, no_sp[j],
-                                         arch.vocab_size, opts)
-                if not nf or is_last:
-                    results[j] = (seq_with_eos, jt[j] if jt is not None
-                                  else None, skip)
-                    resolved[j] = True
-                    # condition the next window only on low-temperature
-                    # results (hf generate_with_fallback :1100-1103)
-                    do_condition[rows[j]] = conditioning and temperature < 0.5
-            if resolved.all():
-                break
+            # --- temperature fallback ladder (generate_with_fallback) ---
+            resolved = np.zeros((bucket,), bool)
+            resolved[nact:] = True                         # filler slots
+            results: list[Any] = [None] * bucket
+            for t_idx, temperature in enumerate(opts.temperatures):
+                seqs, ngen, score, normalized, no_sp, jt = _decode_window(
+                    params, arch, specials, opts, segment, iter_prompt,
+                    max_new, suppress, begin_suppress, align_sel,
+                    float(temperature),
+                    generator, dtw_frames[rows], prompt_mask=iter_mask,
+                    sot_position=sot_position, assistant=assistant,
+                    pos_offset=iter_pos_offset, batch_sharding=batch_sharding)
+                is_last = t_idx == len(opts.temperatures) - 1
+                with trace_span("cw.segments", rows=nact):
+                    for j in range(nact):
+                        if resolved[j]:
+                            continue
+                        g = int(ngen[j])
+                        seq_with_eos = seqs[j, p:p + g]
+                        avg_lp = (score[j] if normalized
+                                  else (score[j] / g) if g > 0 else 0.0)
+                        nf, skip = need_fallback(seq_with_eos, avg_lp,
+                                                 no_sp[j], arch.vocab_size,
+                                                 opts)
+                        if not nf or is_last:
+                            results[j] = (seq_with_eos,
+                                          jt[j] if jt is not None else None,
+                                          skip)
+                            resolved[j] = True
+                            # condition the next window only on low-
+                            # temperature results (hf generate_with_fallback
+                            # :1100-1103)
+                            do_condition[rows[j]] = (conditioning
+                                                     and temperature < 0.5)
+                if resolved.all():
+                    break
 
-        # --- segment extraction & seek advance ---
-        for j in range(nact):
-            i = rows[j]
-            seq_with_eos, jt_row, skip = results[j]
-            if skip:
-                seek[i] += int(seek_num_frames[i])
-                continue
-            seq = seq_with_eos
-            if len(seq) > 0 and seq[-1] == specials.eot:
-                seq = seq[:-1]
-            tok_ts = jt_row[:len(seq)] if jt_row is not None else None
-            if tok_ts is not None and len(tok_ts) < len(seq):
-                tok_ts = np.pad(tok_ts, (0, len(seq) - len(tok_ts)),
-                                mode="edge")
-            segs, offset = retrieve_segment(
-                seq, tok_ts, float(time_offset[i]), specials.timestamp_begin,
-                int(seek_num_frames[i]), opts.time_precision,
-                TIME_PRECISION_FEATURES, INPUT_STRIDE)
-            seek[i] += offset
-            current_segments[i] += segs
+            # --- segment extraction & seek advance ---
+            with trace_span("cw.segments", rows=nact):
+                for j in range(nact):
+                    i = rows[j]
+                    seq_with_eos, jt_row, skip = results[j]
+                    if skip:
+                        seek[i] += int(seek_num_frames[i])
+                        continue
+                    seq = seq_with_eos
+                    if len(seq) > 0 and seq[-1] == specials.eot:
+                        seq = seq[:-1]
+                    tok_ts = jt_row[:len(seq)] if jt_row is not None else None
+                    if tok_ts is not None and len(tok_ts) < len(seq):
+                        tok_ts = np.pad(tok_ts, (0, len(seq) - len(tok_ts)),
+                                        mode="edge")
+                    segs, offset = retrieve_segment(
+                        seq, tok_ts, float(time_offset[i]),
+                        specials.timestamp_begin, int(seek_num_frames[i]),
+                        opts.time_precision, TIME_PRECISION_FEATURES,
+                        INPUT_STRIDE)
+                    seek[i] += offset
+                    current_segments[i] += segs
 
-        if opts.force_unique_generate_call:
-            break                # exactly one seek pass (hf :913)
+            if opts.force_unique_generate_call:
+                break                # exactly one seek pass (hf :913)
 
     # the seeded prompt "segment" is context, not output (hf :918-922)
     final_segments = ([segs[1:] for segs in current_segments]

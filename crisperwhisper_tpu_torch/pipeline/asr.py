@@ -12,7 +12,10 @@ assistant makes the greedy windows speculative (decoding/assisted.py).
 copies of the originals, and ``ASRPipeline.warmup`` has the original's
 code (tests/test_torch_pipeline.py pins them). Each call's audio and wall
 seconds go to ``pipe.meter`` (utils/tracing.RTFMeter, the reference's);
-serving/ batches many streams over ``_run_chunks``.
+serving/ batches many streams over ``_run_chunks``. Spans
+(utils/tracing.py): ``cw.call`` a call (recordings, audio seconds),
+``cw.mel`` and ``cw.generate`` each device batch (rows, and the rows that
+are real chunks), ``cw.stitch`` the stitching of the call's recordings.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..tokenizer.whisper_tokenizer import WhisperTokenizer
 from ..audio.io import load_audio
 from ..audio.mel import extract_features
 from ..decoding.longform import generate
-from ..utils.tracing import RTFMeter
+from ..utils.tracing import RTFMeter, trace_span
 
 
 @dataclass
@@ -163,45 +166,49 @@ class ASRPipeline:
                          return_language=False,
                          adjust_pauses_threshold: float | None = None,
                          prompt: Any | None = None):
-        cfg = self.feat_cfg
-        sr = cfg.sampling_rate
-        sl_s, sr_s = self.pipe_opts.strides()
-        n_samples = int(round(self.pipe_opts.chunk_length_s * sr))
-        stride_left = int(round(sl_s * sr))
-        stride_right = int(round(sr_s * sr))
+        with trace_span("cw.call", recordings=len(audios)) as span:
+            cfg = self.feat_cfg
+            sr = cfg.sampling_rate
+            sl_s, sr_s = self.pipe_opts.strides()
+            n_samples = int(round(self.pipe_opts.chunk_length_s * sr))
+            stride_left = int(round(sl_s * sr))
+            stride_right = int(round(sr_s * sr))
 
-        chunks: list[Chunk] = []
-        total_audio_s = 0.0
-        for idx, a in enumerate(audios):
-            audio = load_audio(a, sr)
-            total_audio_s += audio.shape[0] / sr
-            chunks.extend(chunk_iter(audio, idx, n_samples, stride_left,
-                                     stride_right))
+            chunks: list[Chunk] = []
+            total_audio_s = 0.0
+            for idx, a in enumerate(audios):
+                audio = load_audio(a, sr)
+                total_audio_s += audio.shape[0] / sr
+                chunks.extend(chunk_iter(audio, idx, n_samples, stride_left,
+                                         stride_right))
+            span.count(audio_s=total_audio_s)
 
-        with self.meter.measure(total_audio_s, "pipeline"):
-            chunk_outputs = self._run_chunks(chunks, n_samples,
-                                             return_timestamps,
-                                             prompt=prompt)
+            with self.meter.measure(total_audio_s, "pipeline"):
+                chunk_outputs = self._run_chunks(chunks, n_samples,
+                                                 return_timestamps,
+                                                 prompt=prompt)
 
-        results = []
-        for idx in range(len(audios)):
-            model_outputs = [co for c, co in zip(chunks, chunk_outputs)
-                             if c.audio_idx == idx]
-            # stride samples -> seconds (postprocess :616-623)
-            for out in model_outputs:
-                cl, left, right = out["stride"]
-                out["stride"] = (cl / sr, left / sr, right / sr)
+            results = []
             time_precision = cfg.chunk_length / self.arch.max_source_positions
-            text, optional = decode_asr(
-                self.tokenizer, model_outputs,
-                return_timestamps=return_timestamps,
-                return_language=return_language,
-                time_precision=time_precision)
-            result = {"text": text, **optional}
-            if adjust_pauses_threshold is not None and \
-                    return_timestamps == "word":
-                result = adjust_pauses(result, adjust_pauses_threshold)
-            results.append(result)
+            with trace_span("cw.stitch", recordings=len(audios)):
+                for idx in range(len(audios)):
+                    model_outputs = [co for c, co in zip(chunks,
+                                                         chunk_outputs)
+                                     if c.audio_idx == idx]
+                    # stride samples -> seconds (postprocess :616-623)
+                    for out in model_outputs:
+                        cl, left, right = out["stride"]
+                        out["stride"] = (cl / sr, left / sr, right / sr)
+                    text, optional = decode_asr(
+                        self.tokenizer, model_outputs,
+                        return_timestamps=return_timestamps,
+                        return_language=return_language,
+                        time_precision=time_precision)
+                    result = {"text": text, **optional}
+                    if adjust_pauses_threshold is not None and \
+                            return_timestamps == "word":
+                        result = adjust_pauses(result, adjust_pauses_threshold)
+                    results.append(result)
         return results
 
     @torch.inference_mode()
@@ -285,8 +292,9 @@ class ASRPipeline:
             for i, c in enumerate(group):
                 batch[i, :len(c.samples)] = c.samples
                 num_frames[i] = len(c.samples) // self.feat_cfg.hop_length
-            feats = extract_features(
-                torch.from_numpy(batch).to(self.device), self.feat_cfg)
+            with trace_span("cw.mel", rows=gb):
+                feats = extract_features(
+                    torch.from_numpy(batch).to(self.device), self.feat_cfg)
             lang_tok = self._language_token()
             assistant = (self.assistant if self.assistant is not None
                          else ("prompt_lookup" if opts.prompt_lookup
@@ -296,13 +304,14 @@ class ASRPipeline:
             amb = self.pipe_opts.assistant_max_batch
             if amb is not None and gb > amb:
                 assistant = None
-            gen = generate(self.params, self.arch, self.specials, opts,
-                           feats, num_frames=num_frames,
-                           language_token=lang_tok,
-                           detect_language_first=(self.detect_language
-                                                  and lang_tok is None),
-                           batch_sharding=data_shard,
-                           assistant=assistant)
+            with trace_span("cw.generate", rows=gb, chunks=len(group)):
+                gen = generate(self.params, self.arch, self.specials, opts,
+                               feats, num_frames=num_frames,
+                               language_token=lang_tok,
+                               detect_language_first=(self.detect_language
+                                                      and lang_tok is None),
+                               batch_sharding=data_shard,
+                               assistant=assistant)
             for i, c in enumerate(group):
                 segs = gen.segments[i]
                 toks = (np.concatenate([np.asarray(s["tokens"])
