@@ -51,8 +51,12 @@ Phases, one line each on stdout:
      int8 cross attention of v1 and v2 at B = 16, H = 20, K = 1500 with
      an f32 q; the stacked-cache attention (v3) at the reference
      microbench's shape (L = 2, B = 64, H = 20, T = 1536, sel of 15
-     heads) for int8, int4 and bf16 caches and at phase 8 (c)'s rows (B
-     = 4, T = 1500) for int8 and int4; each decode-attention row with the
+     heads) for int8, int4 and bf16 caches, at phase 8 (c)'s rows (B
+     = 4, T = 1500) for int8 and int4, and at the plain decode step's
+     shapes (large-v3, B = 64: the bf16 cross cache [32, 64, 20, 1500, 64]
+     with a one-slot sel, the bf16 self ring [32, 64, 20, 100, 64] at
+     position 60), there also through bind_decode_gemv, as
+     models/whisper.py calls it; each decode-attention row with the
      cluster size its plan picked, timed per call and, from a CUDA graph,
      on the device; the probe kernel, exact, timed per call and from a
      CUDA graph. Each timed kernel also prints
@@ -86,7 +90,9 @@ Phases, one line each on stdout:
      card: load_pipeline answers a 60 s WAV file and a 12 s array with
      word timestamps and adjust_pauses=0.12, each with its wall and the
      process's CPU seconds inside it; every kernel's launch count
-     is reset just before and read just after, and must be > 0; every
+     is reset just before and read just after, and must be > 0 for the
+     encoder attention, the alignment prep, the DTW and the stacked-cache
+     attention (the one-token step's attentions); every
      encoder-attention launch must have taken the tensor-core route; the
      alignment tail (attention_to_jump_times: align prep + DTW) of each
      request is timed between CUDA events, with its calls and its share
@@ -187,8 +193,9 @@ Phases, one line each on stdout:
      two or more, else printed as not run.
 Then a JSON line with one entry per kernel (launches: phases 4, 9, 10 and
 11 for the first three, over every rank in phase 11, phases 5, 6, 7 and
-9 for the decode step, phase 6 (a) for the ring write, phase 8 for the
-other five), the card's name and power limit, and as the last line
+9 for the decode step, phase 6 (a) for the ring write, phases 4 and 8
+for the stacked-cache attention, phase 8 for the other four), the card's
+name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Exits non-zero, without that last line, when no CUDA card is present, when
@@ -808,7 +815,8 @@ def phase2_remaining(large) -> list[dict]:
     versions on the card: the fused log-mel at the CLI's batch of 16
     windows x 128 mels, the v1 and v2 cross attention at B = 16, the
     stacked-cache attention at the reference microbench's shape for int4,
-    int8 and bf16 caches, and the probe."""
+    int8 and bf16 caches and at the plain decode step's shapes, and the
+    probe."""
     import torch
     from crisperwhisper_tpu_torch import probe, testing
     from crisperwhisper_tpu_torch.audio import fused_mel as fm
@@ -947,6 +955,54 @@ def phase2_remaining(large) -> list[dict]:
         print(f"phase 2 decode_gemv_attention {label}: q bf16 [{shape[1]}, "
               f"20, 64], layer 1 of {list(shape)} caches, sel of 15 heads: "
               + "; ".join(rows) + "; no single library call", flush=True)
+
+    # --- v3 at the plain decode step's shapes (large-v3, bulk batch 64,
+    # the last layer of the stacked caches), as models/whisper.py calls it
+    # through bind_decode_gemv: the bf16 cross cache with a one-slot sel
+    # (a layer with one alignment head), the bf16 self ring of 100 slots at
+    # position 60; a generator of their own keeps the probe's draw as it
+    # was; the bound counts the keys the call attends to
+    own = torch.Generator(device=dev).manual_seed(9)
+    one_slot = torch.zeros((20, 1), device=dev)
+    one_slot[3, 0] = 1.0
+    for label, shape, kw in (
+            ("main path cross", (32, 64, 20, 1500, 64),
+             dict(sel=one_slot)),
+            ("main path self", (32, 64, 20, 100, 64), dict(position=60))):
+        li, n_b, t = shape[0] - 1, shape[1], shape[3]
+        q = (torch.randn(shape[1:3] + (64,), generator=own, device=dev)
+             / 8).to(torch.bfloat16)
+        k, v = (torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                for _ in range(2))
+        for x in (k, v):
+            x[li] = torch.randn(shape[1:], generator=own, device=dev)
+        errs = testing.decode_gemv_errors(q, k, v, li, **kw)
+        for key, (err, band) in errs.items():
+            _require(err <= band, f"decode_gemv_attention {label}: {key} "
+                                  f"max err {err} > {band}")
+        ms = _time_ms(lambda: da.decode_gemv_attention(q, k, v, li, **kw),
+                      20)
+        attend = da.bind_decode_gemv(torch.bfloat16, k, v)
+        bound_ms = _time_ms(lambda: attend(q, li, **kw), 20)
+        device_ms = _graph_ms(lambda: attend(q, li, **kw), 20)
+        plain_ms = _time_ms(lambda: da.decode_gemv_plain(q, k, v, li, **kw),
+                            5)
+        live = min(kw.get("position", t - 1) + 1, t)
+        n_align = kw["sel"].shape[1] if "sel" in kw else 0
+        bound, by = _bound(2 * 2 * n_b * 20 * live * 64 + _nbytes(q)
+                           + 4 * q.numel() + 4 * n_b * n_align * t,
+                           4 * 64 * 20 * live * n_b, "f32")
+        cluster, piece = da._plan_for(q, n_b * 20, t, k.dtype)
+        print(f"phase 2 decode_gemv_attention {label}: q bf16 [{n_b}, 20, "
+              f"64], layer {li} of {list(shape)} bf16 caches, "
+              + ", ".join(f"{key} err {e:.3g} (band {b:.3g})"
+                          for key, (e, b) in errs.items())
+              + f"; {ms:.4f} ms a call ({bound_ms:.4f} ms bound once by "
+              f"bind_decode_gemv, {device_ms:.4f} ms on the device), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {live} keys "
+              f"attended), clusters of {cluster}, pieces of {piece} keys",
+              flush=True)
+        del q, k, v, attend
 
     # --- the probe: x * 2 on one (8, 128) f32 tile, exact
     x = torch.randn((8, 128), generator=gen, device=dev)
@@ -1193,7 +1249,8 @@ def phase4_large(tmp: str, large) -> tuple[dict[str, int], list]:
         longform.attention_to_jump_times = real_tail
     counts = _counts()
     launches = {k: n for k, n in counts.items()
-                if k in ("encoder_attention", "align_prep", "dtw")}
+                if k in ("encoder_attention", "align_prep", "dtw",
+                         "decode_gemv_attention")}
     peak = torch.cuda.max_memory_allocated()
 
     _check_results(requests, results)
@@ -2374,7 +2431,8 @@ def main() -> int:
             launches["decode_step"] = phase5_serving(tmp, large)
             spec = phase6_speculative(tmp, large)
             launches["decode_step"] += phase7_beams_prompts(tmp, large)
-            launches.update(phase8_remaining(tmp, large))
+            for name, n in phase8_remaining(tmp, large).items():
+                launches[name] = launches.get(name, 0) + n
             for name, n in phase9_serving(tmp, large, card).items():
                 launches[name] += n
             for name, n in phase10_entry_points(tmp, large, card).items():

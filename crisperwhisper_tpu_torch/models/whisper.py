@@ -15,11 +15,14 @@ Parameter layout (models/loader.py builds it):
     walked by a Python loop where the reference scans a stacked axis.
 
 The encoder's unmasked self-attention goes through ops/fused_attention.py
-(the CUDA kernel on CUDA tensors). The decoder step's attentions, MLPs and
-LM head are plain torch ops, as the reference leaves them to XLA; so is
-the quantized step (int8 or group-wise int4 weights, int8/int4 caches).
-The quantized serving step that runs all layers in one kernel is
-ops/decode_step.py.
+(the CUDA kernel on CUDA tensors). A one-token decoder step reads each
+layer's single-query attentions through ops/decode_attention.py (the
+stacked-cache kernel, no copy of the cache; its plain twin on the CPU);
+blocks of tokens, per-row positions and beams' cross attention, and the
+MLPs and LM head, are plain torch ops, as the reference leaves them to
+XLA; so is the rest of the quantized step (int8 or group-wise int4
+weights, int8/int4 caches). The quantized serving step that runs all
+layers in one kernel is ops/decode_step.py.
 
 A tree from parallel/mesh.shard_params holds this rank's tensor-parallel
 slices: the attention blocks read their head count from the local
@@ -36,6 +39,7 @@ parity checks, no-speech capture and the auxiliary heads.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -49,6 +53,10 @@ from .._device import resolve as resolve_device
 from ..config import WhisperArch
 from ..parallel.mesh import REDUCE, SLICE, model_shard
 
+# the int4 cache packing lives in ops/decode_attention.py, which reads the
+# caches without importing this module; unpack_int4 is re-exported
+from ..ops.decode_attention import (bind_decode_gemv, cache_values,
+                                    pack_int4, unpack_int4)  # noqa: F401
 from ..ops.fused_attention import fused_attention
 from ..ops.ring_write import ring_plan, write_block_columns_group
 from .quantize import unpack_int4_weights
@@ -251,27 +259,6 @@ def _quantize(x: torch.Tensor, qmax: float
     return q, scale[..., 0].to(torch.bfloat16)
 
 
-def pack_int4(q: torch.Tensor) -> torch.Tensor:
-    """int8 [..., 2n] in [-7, 7] -> uint8 [..., n]: element 2i in the low
-    nibble, 2i + 1 in the high one."""
-    w = q.to(torch.int16)
-    return ((w[..., 0::2] & 0xF) | ((w[..., 1::2] & 0xF) << 4)) \
-        .to(torch.uint8)
-
-
-def unpack_int4(p: torch.Tensor) -> torch.Tensor:
-    """uint8 [..., n] -> int8 [..., 2n], inverse of ``pack_int4``."""
-    b = p.to(torch.int16)
-    lo = ((b & 0xF) ^ 8) - 8                 # sign-extend the nibbles
-    hi = ((b >> 4) ^ 8) - 8
-    return torch.stack([lo, hi], dim=-1).flatten(-2).to(torch.int8)
-
-
-def cache_values(c: torch.Tensor) -> torch.Tensor:
-    """The integer values of a quantized cache slice (int8, unpacked)."""
-    return unpack_int4(c) if c.dtype == torch.uint8 else c
-
-
 def _store(q: torch.Tensor, kind: str) -> torch.Tensor:
     return pack_int4(q) if kind == INT4 else q
 
@@ -356,22 +343,40 @@ def alignment_selector(arch: WhisperArch,
     return sel
 
 
-def _heads_by_layer(align_sel: np.ndarray | None, n_layers: int,
-                    first: int = 0, count: int | None = None
-                    ) -> list[tuple[list[int], list[int]]]:
-    """Per layer: (alignment slots, decoder heads) that the one-hot
-    selector maps (each alignment head has exactly one source). On a mesh
-    a rank holds the ``count`` heads from ``first`` on: only their slots
-    are listed, by local head index."""
+def _alignment_heads(align_sel: np.ndarray | None, n_layers: int,
+                     heads_here: int, first: int, device: torch.device
+                     ) -> list[tuple]:
+    """Per layer: (alignment slots, the decoder heads they read, the
+    one-hot selector f32 [heads_here, slots] and the slots as an int64
+    index, both on ``device``; ``([], [], None, None)`` for a layer
+    without alignment heads), from the one-hot selector (each alignment
+    head has exactly one source). On a mesh a rank holds the
+    ``heads_here`` heads from ``first`` on: only their slots are listed,
+    by local head index. Kept by the selector's nonzero entries, so the
+    device tensors are made at a decode's first step, not at every one;
+    callers only read them."""
+    if align_sel is None:
+        return [([], [], None, None)] * n_layers
+    return _alignment_plan(
+        tuple(map(tuple, np.argwhere(np.asarray(align_sel)).tolist())),
+        n_layers, heads_here, first, device)
+
+
+@functools.lru_cache(maxsize=32)
+def _alignment_plan(entries: tuple, n_layers: int, heads_here: int,
+                    first: int, device: torch.device) -> list[tuple]:
     out = []
     for li in range(n_layers):
-        if align_sel is None:
-            out.append(([], []))
+        mine = [(slot, head - first) for layer, head, slot in entries
+                if layer == li and first <= head < first + heads_here]
+        if not mine:
+            out.append(([], [], None, None))
             continue
-        heads, slots = np.nonzero(np.asarray(align_sel)[li])
-        mine = [(int(s), int(hd) - first) for hd, s in zip(heads, slots)
-                if count is None or first <= hd < first + count]
-        out.append(([s for s, _ in mine], [hd for _, hd in mine]))
+        slots, src = [s for s, _ in mine], [hd for _, hd in mine]
+        sel = torch.zeros((heads_here, len(mine)), dtype=torch.float32)
+        sel[src, range(len(mine))] = 1.0
+        out.append((slots, src, sel.to(device),
+                    torch.tensor(slots, dtype=torch.long, device=device)))
     return out
 
 
@@ -520,6 +525,23 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
             emb_ids = emb_ids.clamp_min(0)
     x = dec["tok_emb"][tokens].to(dtype) \
         + dec["pos_emb"][emb_ids].to(dtype)                      # [B, S, d]
+    if key_mask is not None:
+        key_mask = key_mask.to(device=dev, dtype=torch.bool)
+    # a one-token step reads each layer's single-query attention through
+    # kernel 9 (ops/decode_attention.py) against the stacked caches: the
+    # self half at a scalar position (the keys after it masked), the cross
+    # half with one query an item (beams ride the item's cross attention
+    # as extra query rows, so they take the plain path); None where the
+    # kernel does not take the caches
+    self_gemv = cross_gemv = None
+    if s == 1 and pos_rows is None:
+        self_gemv = bind_decode_gemv(dtype, cache.self_k, cache.self_v,
+                                     cache.self_k_scale, cache.self_v_scale,
+                                     key_mask)
+    if s == 1 and beam_groups == 1:
+        cross_gemv = bind_decode_gemv(dtype, cache.cross_k, cache.cross_v,
+                                      cache.cross_k_scale,
+                                      cache.cross_v_scale)
     mask = None
     if pos_rows is not None:
         # query i of row b attends to slots <= position[b] + i
@@ -531,19 +553,17 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
     if key_mask is not None:
         # slots a row may attend to (False on a conditioned prompt's left
         # pads), over the live prefix the step reads
-        live = key_mask.to(device=dev, dtype=torch.bool)[:, None, None, :end]
+        live = key_mask[:, None, None, :end]
         mask = live if mask is None else mask & live          # [B, 1, S, T]
     scale = arch.head_dim ** -0.5
     n_align = align_sel.shape[-1] if align_sel is not None else 1
     aligned = torch.zeros((b, n_align, s, cache.cross_k.shape[3]),
                           dtype=torch.float32, device=dev)
     shard = model_shard(params)
-    if shard is None:
-        heads = _heads_by_layer(align_sel, arch.decoder_layers)
-    else:
-        local = cache.cross_k.shape[2]
-        heads = _heads_by_layer(align_sel, arch.decoder_layers,
-                                shard.index * local, local)
+    local = cache.cross_k.shape[2]
+    heads = _alignment_heads(align_sel, arch.decoder_layers, local,
+                             0 if shard is None else shard.index * local,
+                             dev)
     plan = (ring_plan(_self_rings(cache))
             if pos_rows is not None and cache.self_k.is_cuda else None)
 
@@ -551,7 +571,9 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
         y = layer_norm(x, lp["ln1"])
         q, k_new, v_new = _self_qkv(y, lp["self"], dh, scale)
         _write_block(cache, li, lo, pos_rows, k_new, v_new, plan)
-        if self_quant:
+        if self_gemv is not None:
+            out = self_gemv(q[:, :, 0], li, position=lo)[:, :, None]
+        elif self_quant:
             out, _ = quantized_attention(
                 q, cache.self_k[li, :, :, :end], cache.self_v[li, :, :, :end],
                 cache.self_k_scale[li, :, :, :end],
@@ -559,25 +581,33 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
         else:
             out, _ = attention(q, cache.self_k[li, :, :, :end],
                                cache.self_v[li, :, :, :end], mask)
-        x = x + dense(_merge_heads(out), lp["self"]["o"])
+        x = x + dense(_merge_heads(out.to(x.dtype)), lp["self"]["o"])
 
         y = layer_norm(x, lp["ln2"])
         qc = _split_heads(dense(y, lp["cross"]["q"]) * scale, dh)
-        if beam_groups > 1:
-            qc = _beam_rows(qc, beam_groups)
-        if cross_quant:
-            out, probs = quantized_attention(
-                qc, cache.cross_k[li], cache.cross_v[li],
-                cache.cross_k_scale[li], cache.cross_v_scale[li])
+        slots, src, sel, slot_index = heads[li]
+        if cross_gemv is not None:
+            out = cross_gemv(qc[:, :, 0], li, sel=sel)
+            if sel is not None:
+                out, rows = out
+                aligned.index_copy_(1, slot_index, rows[:, :, None])
+            out = out[:, :, None]
         else:
-            out, probs = attention(qc, cache.cross_k[li], cache.cross_v[li])
-        if beam_groups > 1:
-            out = _unbeam_rows(out, beam_groups, s)
-            probs = _unbeam_rows(probs, beam_groups, s)
+            if beam_groups > 1:
+                qc = _beam_rows(qc, beam_groups)
+            if cross_quant:
+                out, probs = quantized_attention(
+                    qc, cache.cross_k[li], cache.cross_v[li],
+                    cache.cross_k_scale[li], cache.cross_v_scale[li])
+            else:
+                out, probs = attention(qc, cache.cross_k[li],
+                                       cache.cross_v[li])
+            if beam_groups > 1:
+                out = _unbeam_rows(out, beam_groups, s)
+                probs = _unbeam_rows(probs, beam_groups, s)
+            if slots:
+                aligned[:, slots] = probs[:, src]
         x = x + dense(_merge_heads(out.to(x.dtype)), lp["cross"]["o"])
-        slots, src = heads[li]
-        if slots:
-            aligned[:, slots] = probs[:, src]
 
         x = x + mlp_block(layer_norm(x, lp["ln3"]), lp["mlp"])
 

@@ -30,6 +30,13 @@ uniform over T, as in the reference.
 Each wrapper launches the kernel for CUDA tensors (or raises) and runs its
 plain twin, written on ``cache_values`` with the same rounding points,
 only for CPU tensors. The head dim is 64 (every Whisper size).
+
+``bind_decode_gemv`` is the decoder step's path to the v3 entry
+(models/whisper.py, every one-token step): the checks and the plan that
+hold for a step's stacked caches are made once, and each layer's call is
+a launch (on the CPU, the plain twin at any head dim). This module
+imports nothing of models/, which imports it; the quantized cache's int4
+packing lives here for that reason.
 """
 
 from __future__ import annotations
@@ -39,7 +46,6 @@ import functools
 import torch
 
 from .. import _build
-from ..models.whisper import cache_values
 
 HEAD_DIM = 64
 MAX_KEYS = 8192                       # the kernel's limit (kMaxKeys)
@@ -66,6 +72,27 @@ SMEM_LIMIT = 232448                   # the H100's 227 KB a block
 FILL = 8
 SMEM_BUDGET = 56 * 1024
 STREAM_BUDGET = 112 * 1024
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 [..., 2n] in [-7, 7] -> uint8 [..., n]: element 2i in the low
+    nibble, 2i + 1 in the high one."""
+    w = q.to(torch.int16)
+    return ((w[..., 0::2] & 0xF) | ((w[..., 1::2] & 0xF) << 4)) \
+        .to(torch.uint8)
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., n] -> int8 [..., 2n], inverse of ``pack_int4``."""
+    b = p.to(torch.int16)
+    lo = ((b & 0xF) ^ 8) - 8                 # sign-extend the nibbles
+    hi = ((b >> 4) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).flatten(-2).to(torch.int8)
+
+
+def cache_values(c: torch.Tensor) -> torch.Tensor:
+    """The integer values of a quantized cache slice (int8, unpacked)."""
+    return unpack_int4(c) if c.dtype == torch.uint8 else c
 
 
 def _round16(n: int) -> int:
@@ -327,21 +354,106 @@ def decode_gemv_attention(q: torch.Tensor, k_stack: torch.Tensor,
         n_align = sel.shape[1]
     q, k_stack, v_stack, k_scale, v_scale, key_mask, sel = _on_card(
         q, k_stack, v_stack, k_scale, v_scale, key_mask, sel)
-    out = torch.empty((b, h, HEAD_DIM), dtype=torch.float32, device=q.device)
-    aligned = torch.empty((b, n_align, t), dtype=torch.float32,
-                          device=q.device) if sel is not None else None
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-    _build.launcher("cw_decode_gemv_attention")(
-        q.get_device(), q.data_ptr(), k_stack.data_ptr(), v_stack.data_ptr(),
-        ptr(k_scale), ptr(v_scale), ptr(key_mask), ptr(sel), out.data_ptr(),
-        ptr(aligned), _CACHE_KINDS[k_stack.dtype], n_layers, b, h, t, layer,
-        0 if position is None else max(min(int(position), t), -1),
-        int(position is not None), n_align, int(q.dtype == torch.bfloat16),
-        *_plan_for(q, b * h, t, k_stack.dtype))
-    decode_gemv_attention.launches += 1
-    return out if sel is None else (out, aligned)
+    return _card_attend(q.dtype, k_stack, v_stack, k_scale, v_scale,
+                        key_mask)(q, layer, position, sel)
 
 
 decode_gemv_attention.launches = 0
+
+
+def _card_attend(q_dtype: torch.dtype, k_stack: torch.Tensor,
+                 v_stack: torch.Tensor, k_scale: torch.Tensor | None,
+                 v_scale: torch.Tensor | None,
+                 key_mask: torch.Tensor | None):
+    """The v3 entry bound to stacked caches (and scales, key mask) that
+    are checked and laid out as the kernel reads them (``_on_card``):
+    ``attend(q, layer, position, sel)`` launches it for one layer. A call
+    checks only its q (dtype, shape, layout) and ``sel``, and counts in
+    ``decode_gemv_attention.launches``."""
+    n_layers, b, h, t, _ = k_stack.shape
+    dev = k_stack.device
+    index = k_stack.get_device()
+    launch = _build.launcher("cw_decode_gemv_attention")
+    cluster, piece = plan(b * h, t, _ROW_BYTES[k_stack.dtype],
+                          _sm_count(index))
+    # the tensors stay referenced here for as long as ``attend`` lives (a
+    # copy that _on_card made would otherwise be freed under the kernel)
+    held = (k_stack, v_stack, k_scale, v_scale, key_mask)
+    caches = tuple(None if x is None else x.data_ptr() for x in held)
+    q_shape = torch.Size((b, h, HEAD_DIM))
+    kind, q_bf16 = _CACHE_KINDS[k_stack.dtype], int(q_dtype == torch.bfloat16)
+
+    def attend(q: torch.Tensor, layer: int, position: int | None = None,
+               sel: torch.Tensor | None = None):
+        if (q.dtype != q_dtype or q.shape != q_shape or q.device != dev
+                or not q.is_contiguous() or q.data_ptr() % 16):
+            raise ValueError(f"decode_gemv_attention: q must be contiguous "
+                             f"{q_dtype} {list(q_shape)} on {dev}, got "
+                             f"{q.dtype} {list(q.shape)} on {q.device}")
+        out = torch.empty(q_shape, dtype=torch.float32, device=dev)
+        aligned, n_align = None, 0
+        if sel is not None:
+            if (sel.dtype != torch.float32 or sel.dim() != 2
+                    or sel.shape[0] != h or sel.device != dev
+                    or not sel.is_contiguous()):
+                raise ValueError(f"decode_gemv_attention: sel must be "
+                                 f"contiguous f32 [{h}, A] on {dev}")
+            n_align = sel.shape[1]
+            aligned = torch.empty((b, n_align, t), dtype=torch.float32,
+                                  device=dev)
+        launch(index, q.data_ptr(), *caches,
+               None if sel is None else sel.data_ptr(), out.data_ptr(),
+               None if aligned is None else aligned.data_ptr(), kind,
+               n_layers, b, h, t, int(layer),
+               0 if position is None else max(min(int(position), t), -1),
+               int(position is not None), n_align, q_bf16, cluster, piece)
+        decode_gemv_attention.launches += 1
+        return out if sel is None else (out, aligned)
+    attend.held = held
+    return attend
+
+
+def bind_decode_gemv(q_dtype: torch.dtype, k_stack: torch.Tensor,
+                     v_stack: torch.Tensor,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None,
+                     key_mask: torch.Tensor | None = None):
+    """``decode_gemv_attention`` bound to one pair of stacked caches for
+    the layers of a decode step, or None where it does not take them with
+    the rounding points of models/whisper's ``attention`` and
+    ``quantized_attention``: q f32 or bf16; a float cache in q's dtype,
+    or an int8 / packed int4 one with its scales; at most MAX_KEYS keys;
+    ``key_mask`` None or [B, T]; on the card a head dim of 64 (the plain
+    twin takes any).
+
+    Returns ``attend(q, layer, position=None, sel=None)``, q [B, H, Dh]
+    contiguous in ``q_dtype``, sel f32 [H, A] contiguous on the caches'
+    device: out [B, H, Dh] f32, or (out, aligned [B, A, T] f32) with sel.
+    The caches are checked and, where they are not laid out as the kernel
+    reads them, copied once here, not at every layer."""
+    quantized = k_stack.dtype in (torch.int8, torch.uint8)
+    n_layers, b, h, t, width = k_stack.shape
+    on_card = k_stack.device.type == "cuda"
+    scales_fit = all(
+        (s is not None and s.dtype == torch.bfloat16
+         and s.shape == k_stack.shape[:4]) if quantized else s is None
+        for s in (k_scale, v_scale))
+    if (q_dtype not in _Q_DTYPES
+            or k_stack.device.type not in ("cpu", "cuda")
+            or not (quantized or k_stack.dtype == q_dtype)
+            or v_stack.dtype != k_stack.dtype
+            or v_stack.shape != k_stack.shape or not scales_fit
+            or not 0 < t <= MAX_KEYS
+            or (key_mask is not None and tuple(key_mask.shape) != (b, t))
+            or (on_card and width != (HEAD_DIM // 2 if k_stack.dtype
+                                      == torch.uint8 else HEAD_DIM))):
+        return None
+    if not on_card:
+        def attend(q, layer, position=None, sel=None):
+            return decode_gemv_plain(q, k_stack, v_stack, layer, k_scale,
+                                     v_scale, position, key_mask, sel)
+        return attend
+    if key_mask is not None and key_mask.element_size() != 1:
+        key_mask = key_mask != 0
+    return _card_attend(q_dtype, *_on_card(k_stack, v_stack, k_scale,
+                                           v_scale, key_mask))

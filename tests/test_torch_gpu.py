@@ -1350,3 +1350,88 @@ def test_mesh_pipeline_two_ranks_on_card_matches_unsharded(gen, tmp_path):
         assert testing.result_gap(direct, s) <= testing.TS_BAND
     _same_slice(run, ranks[0]["assistants"]["prompt_lookup"],
                 testing.TS_BAND)
+
+
+def test_one_token_step_routes_through_kernel_9(gen, monkeypatch):
+    """At the bulk cell's shapes (64 rows, 20 heads, 1500 encoder frames,
+    bf16, large-v3 width; four decoder layers, alignment heads on layers 1
+    and 3, a ring of 100 at position 60): one decode_step, which takes
+    kernel 9 for both attentions of every layer, against the same step on
+    the plain path (bind_decode_gemv declining). Logits within a bf16 band
+    of the plain step's; each aligned row within f32 rounding of the
+    softmax that the plain path computes from the routed step's own cross
+    query; two launches a layer; and no host-to-device copy inside the
+    step, where the plain path makes some (its alignment rows' list
+    indices). A generator of its own keeps the module's draws as they
+    were."""
+    from dataclasses import replace
+    from torch.profiler import ProfilerActivity, profile
+    from crisperwhisper_tpu_torch.config import WhisperArch
+    from crisperwhisper_tpu_torch.models import whisper as W
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    own = torch.Generator(device="cuda").manual_seed(17)
+    arch = replace(WhisperArch.large_v3(), encoder_layers=1, decoder_layers=4)
+    params = testing.random_affine(
+        W.init_params(arch, own, "cuda", torch.bfloat16), 17)
+    enc = torch.randn((64, 1500, arch.d_model), generator=own,
+                      device="cuda").to(torch.bfloat16)
+    cache = W.init_cache(params, arch, enc, cache_len=100)
+    with torch.inference_mode():
+        for ring in (cache.self_k, cache.self_v):
+            ring.copy_(torch.randn(ring.shape, generator=own, device="cuda"))
+    heads = ((1, 3), (1, 7), (3, 0))
+    sel = W.alignment_selector(arch, heads)
+    tokens = torch.randint(0, arch.vocab_size, (64,), generator=own,
+                           device="cuda")
+
+    def step(c):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = W.decode_step(params, arch, tokens, 60, c, align_sel=sel)
+            torch.cuda.synchronize()
+        return out, sum("HtoD" in e.name for e in prof.events())
+
+    # the first step builds the kernels and the selector's device tensors
+    W.decode_step(params, arch, tokens, 60, testing.clone_cache(cache),
+                  align_sel=sel)
+    routed, plain = testing.clone_cache(cache), testing.clone_cache(cache)
+    queries, bind = {}, W.bind_decode_gemv
+
+    def spy_bind(dtype, k_stack, *a, **kw):
+        attend = bind(dtype, k_stack, *a, **kw)
+        if k_stack is not routed.cross_k:
+            return attend
+
+        def spy(q, layer, *a2, **kw2):
+            queries[layer] = q
+            return attend(q, layer, *a2, **kw2)
+        return spy
+    monkeypatch.setattr(W, "bind_decode_gemv", spy_bind)
+    before = da.decode_gemv_attention.launches
+    (logits, _, aligned), h2d = step(routed)
+    assert da.decode_gemv_attention.launches == before + 2 * 4
+    assert h2d == 0
+    monkeypatch.setattr(W, "bind_decode_gemv", lambda *a, **kw: None)
+    (ref_logits, _, _), ref_h2d = step(plain)
+    assert da.decode_gemv_attention.launches == before + 2 * 4
+    assert ref_h2d > 0                  # the profiler sees such copies
+    def rel_gap(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+    for name in ("self_k", "self_v"):
+        a, b = getattr(routed, name), getattr(plain, name)
+        # the other slots as they were; layer 0's fresh column comes before
+        # any attention, the later layers' from activations a bf16 rounding
+        # apart where the two attentions sum in other orders
+        assert torch.equal(a[:, :, :, :60], b[:, :, :, :60])
+        assert torch.equal(a[:, :, :, 61:], b[:, :, :, 61:])
+        assert torch.equal(a[0, :, :, 60], b[0, :, :, 60])
+        assert rel_gap(a[1:, :, :, 60], b[1:, :, :, 60]) <= 2 ** -6, name
+    gap = rel_gap(logits, ref_logits)
+    assert gap <= 2 ** -6, gap
+    for slot, (layer, head) in enumerate(heads):
+        scores = queries[layer][:, head, None, :].float() \
+            @ cache.cross_k[layer][:, head].float().transpose(-1, -2)
+        want = torch.softmax(scores[:, 0], dim=-1)
+        err = (aligned[:, slot] - want).abs().max().item()
+        assert err <= testing.DA_PROBS_BAND, (slot, err)

@@ -212,3 +212,207 @@ def test_detect_language_matches_jax(weights):
                                  torch.from_numpy(mel)),
                           num_languages=60).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+# --- one-token steps through kernel 9 (ops/decode_attention.py) ----------
+#
+# A one-token step reads each layer's single-query attention through
+# bind_decode_gemv (on the CPU, the plain twin decode_gemv_plain) against
+# the stacked caches. The oracle is the step on the plain path with the
+# bodies below, copies of models/whisper's ``attention`` and
+# ``quantized_attention`` as the step called them before: the same rounding
+# points, so at f32 with the ring full (the same keys on both sides) the
+# step is equal bit for bit, and elsewhere within the bands below.
+
+def _oracle_attention(q, k, v, mask=None):
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e9)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs.to(v.dtype), v), probs
+
+
+def _oracle_quantized_attention(q, k, v, k_scale, v_scale, mask=None):
+    from crisperwhisper_tpu_torch.models.whisper import cache_values
+    kv = cache_values(k).float()
+    s = torch.matmul(q.float(), kv.transpose(-1, -2)) \
+        * k_scale.float()[:, :, None, :]
+    if mask is not None:
+        s = s.masked_fill(~mask, -1e9)
+    p = torch.softmax(s, dim=-1)
+    pv = (p * v_scale.float()[:, :, None, :]).to(q.dtype)
+    out = torch.matmul(pv.float(), cache_values(v).float())
+    return out.to(q.dtype), p
+
+
+# kind: (activation dtype, cross cache, self ring)
+_GEMV_KINDS = {"f32": (torch.float32, None, None),
+               "bf16": (torch.bfloat16, None, None),
+               "int8-cross": (torch.float32, "int8", None),
+               "int4-cross-bf16": (torch.bfloat16, "int4", None),
+               "int8-ring": (torch.float32, "int8", "int8"),
+               "int4-ring-bf16": (torch.bfloat16, "int4", "int4")}
+# variant: (alignment heads, key mask); "two" puts two heads of layer 0 on
+# slots 0 and 2 and one of layer 1 on slot 1
+_GEMV_VARIANTS = {"no-heads": ((), False),
+                  "one-head": (((1, 2),), False),
+                  "two-heads-key-mask": (((0, 3), (1, 2), (0, 1)), True)}
+_RING, _ROWS, _K_ENC = 12, 3, 20
+# (logits over their largest, alignment rows) where the two sides read
+# rings of other lengths and may sum in other orders: f32 a few ulps; bf16
+# one epsilon, where the step rounds its P.V product to bf16 after the sum
+# (on the CPU both sides are in fact equal bit for bit in every case)
+_GEMV_BANDS = {torch.float32: (1e-6, 1e-7), torch.bfloat16: (2 ** -8, 1e-3)}
+
+
+def _fill_ring(ring, scales, g):
+    """Random values in every slot of a ring (and its bf16 scales), so a
+    key after the position that the step failed to mask would show."""
+    from crisperwhisper_tpu_torch.models import whisper as W
+    x = torch.randn(ring.shape[:4] + (16,), generator=g)
+    with torch.inference_mode():          # init_cache's tensors
+        if scales is None:
+            ring.copy_(x.to(ring.dtype))
+            return
+        q, s = W._quantize(x, 7.0 if ring.dtype == torch.uint8 else 127.0)
+        ring.copy_(W.pack_int4(q) if ring.dtype == torch.uint8 else q)
+        scales.copy_(s)
+
+
+def _gemv_case(kind, variant, position):
+    """(params, arch, tokens, cache, align_sel, key_mask) of one step."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.models import whisper as W
+    dtype, cross, ring = _GEMV_KINDS[kind]
+    heads, masked = _GEMV_VARIANTS[variant]
+    arch = tiny_arch()
+    g = torch.Generator().manual_seed(position + 7)
+    params = testing.random_affine(W.init_params(arch, g, dtype=dtype), 3)
+    enc = torch.randn((_ROWS, _K_ENC, arch.d_model), generator=g).to(dtype)
+    cache = W.init_cache(params, arch, enc, cache_len=_RING,
+                         cross_dtype=cross, self_dtype=ring)
+    _fill_ring(cache.self_k, cache.self_k_scale, g)
+    _fill_ring(cache.self_v, cache.self_v_scale, g)
+    key_mask = None
+    if masked:
+        key_mask = torch.rand((_ROWS, _RING), generator=g) > 0.3
+        key_mask[:, position] = True
+    tokens = torch.randint(0, arch.vocab_size, (_ROWS,), generator=g)
+    sel = W.alignment_selector(arch, heads) if heads else None
+    return params, arch, tokens, cache, sel, key_mask
+
+
+@pytest.mark.parametrize("position", [0, _RING // 2, _RING - 1])
+@pytest.mark.parametrize("variant", list(_GEMV_VARIANTS))
+@pytest.mark.parametrize("kind", list(_GEMV_KINDS))
+def test_one_token_step_through_kernel_9_matches_the_plain_step(
+        monkeypatch, kind, variant, position):
+    """decode_step routed through kernel 9's twin against the oracle step:
+    logits and alignment rows equal at f32 with the ring full, within the
+    dtype's band elsewhere; the written ring columns equal everywhere."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.models import whisper as W
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    params, arch, tokens, cache, sel, key_mask = _gemv_case(kind, variant,
+                                                            position)
+    ref_cache = testing.clone_cache(cache)
+    calls = []
+    plain = da.decode_gemv_plain
+    monkeypatch.setattr(da, "decode_gemv_plain",
+                        lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    got = W.decode_step(params, arch, tokens, position, cache,
+                        align_sel=sel, key_mask=key_mask)
+    assert len(calls) == 2 * arch.decoder_layers
+    with monkeypatch.context() as m:
+        m.setattr(W, "bind_decode_gemv", lambda *a, **kw: None)
+        m.setattr(W, "attention", _oracle_attention)
+        m.setattr(W, "quantized_attention", _oracle_quantized_attention)
+        ref = W.decode_step(params, arch, tokens, position, ref_cache,
+                            align_sel=sel, key_mask=key_mask)
+    assert len(calls) == 2 * arch.decoder_layers
+    for name in ("self_k", "self_v", "self_k_scale", "self_v_scale"):
+        a, b = getattr(cache, name), getattr(ref_cache, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(
+            a, b)), name
+    (lg, _, ag), (lr, _, ar) = got, ref
+    assert lg.dtype == lr.dtype == ag.dtype == ar.dtype == torch.float32
+    assert lg.shape == lr.shape and ag.shape == ar.shape
+    if sel is None:
+        assert not ag.any()
+    dtype = _GEMV_KINDS[kind][0]
+    if dtype == torch.float32 and position == _RING - 1:
+        assert torch.equal(lg, lr) and torch.equal(ag, ar)
+    rel, band = _GEMV_BANDS[dtype]
+    assert (lg - lr).abs().max() <= rel * lr.abs().max()
+    assert (ag - ar).abs().max() <= band
+    assert da.decode_gemv_attention.launches == 0     # CPU: the plain twin
+
+
+@pytest.mark.parametrize("path", ["step", "beams", "row-positions",
+                                  "multi"])
+def test_kernel_9_dispatch_by_tokens_positions_and_beams(monkeypatch, path):
+    """Calls of kernel 9's entry a step, by half: both halves of every
+    layer in a one-token step at a scalar position; the self half alone
+    with beams (their cross attention rides the item's rows); the cross
+    half alone at per-row positions; none in a block of tokens."""
+    from crisperwhisper_tpu_torch.models import whisper as W
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    params, arch, tokens, cache, sel, _ = _gemv_case("f32", "two-heads-"
+                                                     "key-mask", 4)
+    halves = []
+    plain = da.decode_gemv_plain
+
+    def spy(q, k_stack, *a, **kw):
+        halves.append("self" if k_stack is cache.self_k else "cross")
+        return plain(q, k_stack, *a, **kw)
+    monkeypatch.setattr(da, "decode_gemv_plain", spy)
+    n = arch.decoder_layers
+    if path == "step":
+        W.decode_step(params, arch, tokens, 4, cache, align_sel=sel)
+        want = {"self": n, "cross": n}
+    elif path == "beams":
+        beams = W.init_cache(params, arch, torch.randn(
+            (1, _K_ENC, arch.d_model)), cache_len=_RING,
+            self_batch=_ROWS)
+        cache.self_k, cache.self_v = beams.self_k, beams.self_v
+        cache.cross_k, cache.cross_v = beams.cross_k, beams.cross_v
+        W.decode_step(params, arch, tokens, 4, cache, align_sel=sel,
+                      beam_groups=_ROWS)
+        want = {"self": n, "cross": 0}
+    elif path == "row-positions":
+        W.decode_step(params, arch, tokens,
+                      torch.tensor([4, 2, 7], dtype=torch.int32), cache,
+                      align_sel=sel)
+        want = {"self": 0, "cross": n}
+    else:
+        W.decode_step_multi(params, arch, tokens[:, None].repeat(1, 3), 4,
+                            cache, align_sel=sel)
+        want = {"self": 0, "cross": 0}
+    assert {h: halves.count(h) for h in want} == want
+
+
+@pytest.mark.parametrize("case", ["f16-q", "f32-cache-bf16-q",
+                                  "int8-without-scales", "key-mask-shape",
+                                  "too-many-keys"])
+def test_bind_decode_gemv_declines_what_the_step_must_not_route(case):
+    """bind_decode_gemv returns None (the step keeps its plain path) where
+    kernel 9 would not compute the plain step's function: a q dtype it
+    has no route for, a float cache in another dtype than q (the kernel
+    would round it to q's), a quantized cache without scales, a key mask
+    that is not [B, T], more keys than the kernel takes; and binds the
+    TINY caches (head dim 16) on the CPU, where the plain twin runs."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    shape = (2, 3, 4, 8, 16)
+    f32 = torch.zeros(shape)
+    i8 = torch.zeros(shape, dtype=torch.int8)
+    sc = torch.zeros(shape[:4], dtype=torch.bfloat16)
+    assert da.bind_decode_gemv(torch.float32, f32, f32) is not None
+    assert da.bind_decode_gemv(torch.bfloat16, i8, i8, sc, sc) is not None
+    args = {"f16-q": (torch.float16, f32.half(), f32.half()),
+            "f32-cache-bf16-q": (torch.bfloat16, f32, f32),
+            "int8-without-scales": (torch.float32, i8, i8),
+            "key-mask-shape": (torch.float32, f32, f32, None, None,
+                               torch.ones((3, 9), dtype=torch.bool)),
+            "too-many-keys": (torch.float32,) + (torch.zeros(
+                (1, 1, 1, da.MAX_KEYS + 1, 16)),) * 2}[case]
+    assert da.bind_decode_gemv(*args) is None
