@@ -19,8 +19,11 @@ served tokens. Three numbers are compared:
   stitcher (``reference/stitch.py``) makes of the served tokens and
   token times, the pause adjustment included.
 
-With a control (``control.py``) the same numbers are read for the tokens
-and times a lower-precision reference puts first.
+A mix without word times (``return_token_timestamps`` false) has no
+token times: ``compare`` reads no ``ts`` and ``stitch_mismatch``
+compares the text alone. With a control (``control.py``) the same
+numbers are read for the tokens and times a lower-precision reference
+puts first.
 """
 
 from __future__ import annotations
@@ -113,29 +116,33 @@ def wrong_heads(align_heads: list, n_heads: int) -> list:
 
 def compare(params: dict, arch, windows: list[Window], audio: list,
             prompt: list[int], allowed_below: int | None,
-            align_heads: list, median_width: int, mode: str, device,
+            align_heads: list | None, median_width: int, mode: str, device,
             control: str | None = None, block: int = 4) -> dict:
     """The reference's readings over ``windows``:
 
     * ``logit_gap``: max over served tokens of the best allowed logit
       minus the served token's;
-    * ``ts``: statistics (``ts_stats``) of |served token time - the
-      reference's| (s);
+    * ``ts``, with ``align_heads`` (None: no word times): statistics
+      (``ts_stats``) of |served token time - the reference's| (s), and
+      ``ts_err_s``, their ``p50``, the number compared;
     * ``tokens``, ``distinct_tokens`` and ``median_margin`` (the
       reference's median lead of its best token over the second):
       how much the sample can tell, informative;
-    * with ``control``, ``control``: ``logit_gap`` and ``ts`` of the
-      tokens and times a reference in that mode puts first; and
-      ``faults``: the ``ts`` statistics of three planted faults of the
-      alignment tail: ``heads`` (the reference with ``wrong_heads``),
-      ``shift`` (each served time replaced by the next token's) and
-      ``reversed`` (a window's served times in reverse order).
+    * with ``control``, ``control``: ``logit_gap``, ``ts`` and
+      ``ts_err_s`` of the tokens and times a reference in that mode puts
+      first; and, with
+      ``align_heads``, ``faults``: the ``ts`` statistics of three planted
+      faults of the alignment tail: ``heads`` (the reference with
+      ``wrong_heads``), ``shift`` (each served time replaced by the next
+      token's) and ``reversed`` (a window's served times in reverse
+      order).
     """
     ref = model.Reference(params, arch, mode)
     ctl = model.Reference(params, arch, control) if control else None
-    n_align = len(align_heads)
-    heads = [list(h) for h in align_heads]
-    if ctl is not None:
+    word = align_heads is not None
+    n_align = len(align_heads) if word else 0
+    heads = [list(h) for h in align_heads] if word else None
+    if word and ctl is not None:
         heads += wrong_heads(align_heads, arch.decoder_attention_heads)
     p = len(prompt)
     gap = ctl_gap = 0.0
@@ -168,24 +175,27 @@ def compare(params: dict, arch, windows: list[Window], audio: list,
                 tok = torch.as_tensor(w.tokens, device=device)
                 g = best - logits.gather(1, tok[:, None])[:, 0]
                 gap = max(gap, float(g.max()))
-                n_frames = max(min(w.length // 160 // 2,
-                                   arch.max_source_positions), 1)
-                rows = probs[0, :, p:p + n - 1].cpu().numpy()
-
-                def times(r):
-                    return align.token_times(r, n - 1, n_frames,
-                                             median_width, n)
-
-                ref_t = times(rows[:n_align])
-                mine = np.asarray(w.times[:n], np.float64)
-                served.append(_deltas(mine, ref_t))
                 n_tok += n
+                if word:
+                    n_frames = max(min(w.length // 160 // 2,
+                                       arch.max_source_positions), 1)
+                    rows = probs[0, :, p:p + n - 1].cpu().numpy()
+
+                    def times(r):
+                        return align.token_times(r, n - 1, n_frames,
+                                                 median_width, n)
+
+                    ref_t = times(rows[:n_align])
+                    mine = np.asarray(w.times[:n], np.float64)
+                    served.append(_deltas(mine, ref_t))
                 if ctl is not None:
-                    faults["heads"].append(_deltas(times(rows[n_align:]),
-                                                   ref_t))
-                    faults["shift"].append(_deltas(
-                        np.append(mine[1:], mine[-1:]), ref_t))
-                    faults["reversed"].append(_deltas(mine[::-1], ref_t))
+                    if word:
+                        faults["heads"].append(_deltas(
+                            times(rows[n_align:]), ref_t))
+                        faults["shift"].append(_deltas(
+                            np.append(mine[1:], mine[-1:]), ref_t))
+                        faults["reversed"].append(_deltas(mine[::-1],
+                                                          ref_t))
                     c_logits, c_probs = ctl.decode(enc_c[j:j + 1], ids,
                                                    align_heads)
                     c_logits = c_logits[0, p - 1:p - 1 + n]
@@ -194,26 +204,36 @@ def compare(params: dict, arch, windows: list[Window], audio: list,
                     pick = c_logits.argmax(dim=-1)
                     cg = best - logits.gather(1, pick[:, None])[:, 0]
                     ctl_gap = max(ctl_gap, float(cg.max()))
-                    ctl_d.append(_deltas(times(
-                        c_probs[0, :, p:p + n - 1].cpu().numpy()), ref_t))
-    out = {"logit_gap": gap, "ts": ts_stats(served), "tokens": n_tok,
-           "distinct_tokens": len(distinct),
-           "median_margin": float(np.median(np.concatenate(margins)))
-           if margins else 0.0}
+                    if word:
+                        ctl_d.append(_deltas(times(
+                            c_probs[0, :, p:p + n - 1].cpu().numpy()),
+                            ref_t))
+    out = {"logit_gap": gap}
+    if word:
+        out["ts"] = ts_stats(served)
+        out["ts_err_s"] = out["ts"]["p50"]
+    out.update(tokens=n_tok, distinct_tokens=len(distinct),
+               median_margin=float(np.median(np.concatenate(margins)))
+               if margins else 0.0)
     if ctl is not None:
-        out["control"] = {"logit_gap": ctl_gap, "ts": ts_stats(ctl_d)}
-        out["faults"] = {k: ts_stats(v) for k, v in faults.items()}
+        out["control"] = {"logit_gap": ctl_gap}
+        if word:
+            out["control"]["ts"] = ts_stats(ctl_d)
+            out["control"]["ts_err_s"] = out["control"]["ts"]["p50"]
+            out["faults"] = {k: ts_stats(v) for k, v in faults.items()}
     return out
 
 
 def stitch_mismatches(traffic, calls: list, results: list,
                       windows: list[Window], picked: list[Window],
-                      pause_threshold: float | None) -> tuple[int, int]:
+                      pause_threshold: float | None, pieces: list[bytes],
+                      word: bool) -> tuple[int, int]:
     """(results differing, results compared): each recording that a
     picked window belongs to, in the call that served it, stitched again
-    by the reference (``reference/stitch.py``) from the served tokens and
-    token times, and compared with the program's result exactly: text,
-    every word and both of its times."""
+    by the reference (``reference/stitch.py``, over the vocabulary's
+    ``pieces``) from the served tokens and token times, and compared with
+    the program's result exactly: text, every word and both of its times;
+    without ``word`` times, the text of the tokens alone."""
     pairs = sorted({(w.call, w.recording) for w in picked})
     bad = 0
     for ci, r in pairs:
@@ -226,12 +246,14 @@ def stitch_mismatches(traffic, calls: list, results: list,
                           (w.length / SR, left / SR, right / SR)))
         got = results[ci][calls[ci].recordings.index(r)]
         try:
-            want = stitch.transcribe(spans, pause_threshold)
+            want = (stitch.transcribe(spans, pause_threshold, pieces) if word
+                    else stitch.transcribe_text([w.tokens for w in mine],
+                                                pieces))
         except ValueError:
             bad += 1
             continue
         bad += (got.get("text") != want["text"]
-                or list(got.get("chunks", [])) != want["chunks"])
+                or word and list(got.get("chunks", [])) != want["chunks"])
     return bad, len(pairs)
 
 

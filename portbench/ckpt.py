@@ -70,6 +70,16 @@ def _base36(n: int) -> str:
             return out
 
 
+def text_pieces() -> list[bytes]:
+    """The bytes of every text id (< <|endoftext|>) in ``write``'s
+    vocabulary: the 256 byte symbols, then " w<base36 id>"."""
+    byte_of = {c: b for b, c in bytes_to_unicode().items()}
+    pieces = [bytes([byte_of[c]]) for c in bytes_to_unicode().values()]
+    pieces += [b" w" + _base36(i).encode("ascii")
+               for i in range(len(pieces), EOT)]
+    return pieces
+
+
 def _write_json(path: str, obj) -> None:
     with open(path, "w", encoding="utf-8") as f:
         json.dump(obj, f, ensure_ascii=False)

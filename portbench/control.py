@@ -13,8 +13,9 @@ serving path) and judged there: ``control_correct`` is the run's
 ``correct`` with the control's numbers compared. One JSON line per seed
 (the program's readings, the control's, the planted faults of the token
 times), then the lower readings (the program's largest) and the upper
-ones (the control's and each fault's smallest). The benchmark's own runs
-never run the control.
+ones (the control's and each fault's smallest). A mix without word
+times has no token times, no ``ts`` and no planted faults. The
+benchmark's own runs never run the control.
 """
 
 from __future__ import annotations
@@ -58,26 +59,31 @@ def main(argv=None) -> int:
                                      n_calls=n_calls, control=mode)
         rows.append(r)
         c = r["control"]
-        print(json.dumps({
+        line = {
             "seed": seed, "control_correct": res["correct"],
-            "logit_gap": r["logit_gap"], "ts": r["ts"],
+            "logit_gap": r["logit_gap"], "ts": r.get("ts"),
             "stitch_mismatch": r["stitch_mismatch"],
-            "control_logit_gap": c["logit_gap"], "control_ts": c["ts"],
-            "faults": r["faults"], "tokens": r["tokens"],
+            "control_logit_gap": c["logit_gap"], "control_ts": c.get("ts"),
+            "faults": r.get("faults"), "tokens": r["tokens"],
             "distinct_tokens": r["distinct_tokens"],
             "median_margin": r["median_margin"],
-            "seconds": time.perf_counter() - t0}), flush=True)
-    stats = rows[0]["ts"].keys()
-    print(json.dumps({
+            "seconds": time.perf_counter() - t0}
+        print(json.dumps({k: v for k, v in line.items() if v is not None}),
+              flush=True)
+    summary = {
         "workload": args.workload, "control": mode, "seeds": len(rows),
         "lower_logit_gap": max(r["logit_gap"] for r in rows),
-        "upper_control_gap": min(r["control"]["logit_gap"] for r in rows),
-        "lower_ts": {k: max(r["ts"][k] for r in rows) for k in stats},
-        "upper_ts": {f: {k: min(r["faults"][f][k] for r in rows)
-                         for k in stats} for f in rows[0]["faults"]},
-        "control_ts_min": {k: min(r["control"]["ts"][k] for r in rows)
-                           for k in stats},
-        "seconds": time.perf_counter() - T0}))
+        "upper_control_gap": min(r["control"]["logit_gap"] for r in rows)}
+    if "ts" in rows[0]:
+        stats = rows[0]["ts"].keys()
+        summary.update(
+            lower_ts={k: max(r["ts"][k] for r in rows) for k in stats},
+            upper_ts={f: {k: min(r["faults"][f][k] for r in rows)
+                          for k in stats} for f in rows[0]["faults"]},
+            control_ts_min={k: min(r["control"]["ts"][k] for r in rows)
+                            for k in stats})
+    summary["seconds"] = time.perf_counter() - T0
+    print(json.dumps(summary))
     return 0
 
 

@@ -42,10 +42,11 @@ def idle_share(ctx) -> float | None:
 
 def mfu(ctx) -> float | None:
     """Percent of the card's bf16 peak: the model operations of every
-    window served in the window (work.window_flops, from shapes) over
-    the window's seconds."""
+    window served in the window (the architecture's
+    ``work.window_flops``, from shapes) over the window's seconds."""
     if not ctx.windows or ctx.window_s <= 0:
         return None
-    flops = math.fsum(work.window_flops(ctx.arch, ctx.prompt_len,
-                                        len(w.tokens)) for w in ctx.windows)
+    flops = math.fsum(ctx.work.window_flops(ctx.arch, ctx.prompt_len,
+                                            len(w.tokens))
+                      for w in ctx.windows)
     return 100.0 * flops / ctx.window_s / BF16_PEAK

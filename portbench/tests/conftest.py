@@ -16,7 +16,8 @@ PORTBENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(PORTBENCH)
 sys.path.insert(0, ROOT)
 
-SMALL = {"name": "small", "source": "test", "d_model": 64,
+SMALL = {"name": "small", "source": "test", "model_type": "whisper",
+         "d_model": 64,
          "encoder_layers": 2, "decoder_layers": 2,
          "encoder_attention_heads": 4, "decoder_attention_heads": 4,
          "encoder_ffn_dim": 128, "decoder_ffn_dim": 128,
@@ -52,12 +53,14 @@ def _write(path: str, obj) -> None:
 def small_root(tmp_path):
     """(root, bench): a benchmark directory holding the small config, a
     bulk mix of 6 windows at batch 4 and a clip mix of 3 clips, their
-    limits and every metric reader; ``bench`` lists the two cells."""
+    limits, every metric reader and every architecture file; ``bench``
+    lists the two cells."""
     root = str(tmp_path)
     for d in ("configs", "traffic", "limits"):
         os.makedirs(os.path.join(root, d))
-    shutil.copytree(os.path.join(PORTBENCH, "metrics"),
-                    os.path.join(root, "metrics"))
+    for d in ("metrics", "archs"):
+        shutil.copytree(os.path.join(PORTBENCH, d), os.path.join(root, d),
+                        ignore=shutil.ignore_patterns("__pycache__"))
     _write(os.path.join(root, "configs", "small.json"), SMALL)
     with open(os.path.join(PORTBENCH, "traffic", "bulk-b64.json")) as f:
         bulk = json.load(f)

@@ -36,6 +36,7 @@ def test_control_fails_at_the_cells_size(cuda_card, cell):
             device=cuda_card, n_calls=n_calls,
             control=control.control_mode(mix))
         assert r["logit_gap"] <= limits["logit_gap"], r
-        assert r["ts"]["p50"] <= limits["ts_err_s"], r
+        if "ts_err_s" in limits:
+            assert r["ts"]["p50"] <= limits["ts_err_s"], r
         assert r["stitch_mismatch"] == 0, r
         assert not res["correct"], r

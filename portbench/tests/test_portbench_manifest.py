@@ -10,6 +10,7 @@ import re
 import pytest
 
 from conftest import PORTBENCH, ROOT
+from portbench import harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -114,8 +115,24 @@ def test_every_name_is_a_file(bench):
                                                name + ".json"))
         with open(os.path.join(PORTBENCH, "limits", w["name"] + ".json")) as f:
             limits = json.load(f)
-        assert set(limits) == {"logit_gap", "ts_err_s"}
+        assert "logit_gap" in limits
+        assert not set(limits) & set(harness.GATES)
         assert all(v > 0 for v in limits.values())
     for m in bench["per_layer"]:
         assert os.path.exists(os.path.join(PORTBENCH, "metrics",
                                            m["name"] + ".py"))
+
+
+def test_every_architecture_is_a_file_and_word_times_are_held(bench):
+    """Each configuration's published ``model_type`` names a file under
+    archs/ holding the contract's names, and every cell whose mix asks
+    for word times holds them to a limit."""
+    for c in bench["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            mod = harness.architecture(PORTBENCH, json.load(f))
+        assert all(hasattr(mod, n) for n in harness.ARCH_NAMES)
+    for w in bench["workloads"]:
+        mix = harness.load(PORTBENCH, "traffic", w["traffic"])
+        limits = harness.load(PORTBENCH, "limits", w["name"])
+        if mix["generation"]["return_token_timestamps"]:
+            assert "ts_err_s" in limits, w["name"]

@@ -150,6 +150,52 @@ def test_stitch_matches_the_ports_stitcher(seed, tmp_path):
     text, opt = decode_asr(tok, outputs, return_timestamps="word",
                            return_language=False, time_precision=0.02)
     want = adjust_pauses({"text": text, **opt}, 0.12)
-    got = stitch.transcribe(windows, 0.12)
+    got = stitch.transcribe(windows, 0.12, ckpt.text_pieces())
     assert got["text"] == want["text"] and got["chunks"] == want["chunks"]
     assert len(got["chunks"]) > 10
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_text_stitch_matches_the_ports_stitcher(seed, tmp_path):
+    """Overlapping windows of random text tokens with no times: the
+    reference's tokens-only merge equals the port's
+    find_longest_common_sequence, and its text the port's decode_asr in
+    text mode."""
+    from crisperwhisper_tpu_torch.tokenizer.stitcher import (
+        decode_asr, find_longest_common_sequence)
+    from crisperwhisper_tpu_torch.tokenizer.whisper_tokenizer import (
+        WhisperTokenizer)
+    from portbench import ckpt, generator
+    from portbench.reference import stitch
+
+    tok = WhisperTokenizer.from_dir(ckpt.write(
+        str(tmp_path), dict(SMALL), SMALL["alignment_heads"]),
+        language="en")
+    rng = np.random.default_rng(100 + seed)
+    byte_id = {b: i for i, b in enumerate(
+        ckpt.bytes_to_unicode().keys())}
+    alphabet = ([byte_id[b] for b in b".,!?\"'(-: "]
+                + [byte_id[0xC3], byte_id[0xA9]] + list(range(300, 312)))
+    n = generator.samples_for_windows(4) - int(rng.integers(0, 9000))
+    base = rng.choice(alphabet, 1000)
+    bounds = generator.chunk_bounds(n)
+    runs, outputs = [], []
+    for k, (start, length) in enumerate(bounds):
+        at = start // 3200              # five tokens a second
+        m = int(rng.integers(20, 60))
+        toks = base[at:at + m].copy()
+        toks[rng.random(m) < 0.1] = rng.choice(alphabet)
+        left = 0 if start == 0 else generator.STRIDE
+        right = 0 if k == len(bounds) - 1 else generator.STRIDE
+        runs.append(toks)
+        outputs.append({"tokens": toks[None], "stride": (
+            length / 16000, left / 16000, right / 16000)})
+    pieces = ckpt.text_pieces()
+    merged, times = stitch.merge_runs([list(r) for r in runs])
+    assert merged == find_longest_common_sequence([list(r) for r in runs])
+    assert times is None and len(merged) < sum(len(r) for r in runs)
+    text, opt = decode_asr(tok, outputs, return_timestamps=False,
+                           return_language=False, time_precision=0.02)
+    assert opt == {}
+    assert stitch.transcribe_text(runs, pieces) == {"text": text}
+    assert stitch.transcribe_text([], pieces) == {"text": ""}
