@@ -191,10 +191,27 @@ Phases, one line each on stdout:
      over the f32 mesh pipeline equal to the direct call in text and
      words, timestamps within 0.02 s; (c) dryrun_multichip on every card where there are
      two or more, else printed as not run.
+ 12. the speech LM's grouped expert kernel (csrc/moe.cu) at
+     Uni-MoE-2.0-Omni's published widths and 2 of its 28 language-model
+     layers (random bf16 weights at the benchmark's scales,
+     testing.speech_moe_params): (a) one layer's routed experts at the
+     benchmark cell's shapes, 64 decode tokens (step tiles) and a prefill
+     of 64 window prompts (block tiles; 64 x 251 positions in this
+     checkpoint's vocabulary, 64 x 215 in the benchmark's), routed by the
+     layer's gate, against moe._plain within testing.MOE_BAND, timed
+     beside the plain twin and the bound of the experts with rows and the
+     routed rows (portbench/work_speech_moe.expert_work); (b) the main
+     path:
+     load_pipeline on a weightless checkpoint of it and pipe() on 64
+     recordings of 10 s (one batch of 64 windows, 96 new tokens each),
+     the kernel's launch count reset just before and read just after:
+     two a layer for each prefill and each step that the call's
+     cw.decode records count, every result non-empty text.
 Then a JSON line with one entry per kernel (launches: phases 4, 9, 10 and
 11 for the first three, over every rank in phase 11, phases 5, 6, 7 and
 9 for the decode step, phase 6 (a) for the ring write, phases 4 and 8
-for the stacked-cache attention, phase 8 for the other four), the card's
+for the stacked-cache attention, phase 8 for the other four, phase 12
+(b) for the grouped expert kernel), the card's
 name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1302,6 +1319,7 @@ def _wrappers() -> dict:
     from crisperwhisper_tpu_torch.ops import decode_step as ds
     from crisperwhisper_tpu_torch.ops import dtw as dt
     from crisperwhisper_tpu_torch.ops import fused_attention as fa
+    from crisperwhisper_tpu_torch.ops import moe
     from crisperwhisper_tpu_torch.ops import ring_write as rw
     return {"encoder_attention": fa.fused_attention,
             "align_prep": ap.align_prep, "dtw": dt.dtw,
@@ -1311,6 +1329,7 @@ def _wrappers() -> dict:
             "cross_attention_int8": da.cross_attention_int8,
             "cross_attention_int8_v2": da.cross_attention_int8_v2,
             "decode_gemv_attention": da.decode_gemv_attention,
+            "grouped_swiglu": moe.grouped_swiglu,
             "probe_add": probe.probe_add}
 
 
@@ -2394,6 +2413,126 @@ def phase11_parallel(tmp: str, large, card: str,
     return totals
 
 
+# Uni-MoE-2.0-Omni's published keys that models/speech_moe reads (its
+# config.json, HIT-TMG/Uni-MoE-2.0-Omni); phase 12 runs 2 of its 28
+# language-model layers
+UNI_MOE = {"model_type": "grin_qwen2_vl", "hidden_size": 3584,
+           "num_hidden_layers": 2, "num_attention_heads": 28,
+           "num_key_value_heads": 4, "rope_theta": 1000000,
+           "rms_norm_eps": 1e-6, "vocab_size": 152064,
+           "mlp_dynamic_expert_num": 4, "mlp_dynamic_null_expert_num": 1,
+           "dynamic_intermediate_size": 18944, "mlp_dynamic_top_p": 0.7,
+           "mlp_dynamic_top_k": 2, "mlp_fixed_expert_num": 2,
+           "shared_intermediate_size": 2368,
+           "max_position_embeddings": 128000, "whisper_hidden_size": 1280,
+           "whisper_query_tokens_size": 200}
+
+
+def _expert_work(arch, rows: int, active: int) -> tuple[float, float]:
+    """(bytes, operations) of the grouped expert kernel's two launches
+    (portbench/work_speech_moe.expert_work): each active expert's three
+    matrices read once, each row's input, its silu(gate) * up written and
+    read back and its f32 output; six operations a row and weight."""
+    d, f = arch.hidden_size, arch.expert_dim
+    return (active * 3 * d * f * 2 + rows * (d * 2 + 2 * f * 2 + d * 4),
+            2 * 3 * d * f * rows)
+
+
+def phase12_speech_moe(tmp: str) -> tuple[dict, int]:
+    """The speech LM's grouped expert kernel at the benchmark cell's
+    shapes, then on the main path (module docstring). Returns its kernel
+    entry and its launches in (b)."""
+    import numpy as np
+    import torch
+
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.config import PipelineOptions
+    from crisperwhisper_tpu_torch.hub import load_pipeline
+    from crisperwhisper_tpu_torch.models import speech_moe
+    from crisperwhisper_tpu_torch.ops import moe
+    from crisperwhisper_tpu_torch.utils import tracing
+
+    ck = testing.write_speech_moe_configs(os.path.join(tmp, "moe_ckpt"),
+                                          UNI_MOE)
+    arch = speech_moe.SpeechMoEArch.from_hf_config(UNI_MOE)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = testing.speech_moe_params(arch, gen, "cuda", torch.bfloat16)
+    lp = params["decoder"]["layers"][0]
+    e, d = arch.num_experts, arch.hidden_size
+    pipe = load_pipeline(ck, dtype=torch.bfloat16, device="cuda",
+                         params=params,
+                         pipe_opts=PipelineOptions(batch_size=64))
+    prompt = len(pipe.specials.prompt)
+    worst, rows_ms = 0.0, {}
+    for tokens in (64, 64 * prompt):
+        y = torch.randn((tokens, d), generator=gen, device="cuda")
+        r = moe.route(y, lp["router"]["w"], e, arch.top_p, arch.top_k)
+        x = y.to(torch.bfloat16)
+        token, weight, offsets = moe.expert_pairs(r, e)
+        got = moe.routed_experts(x, r, lp["experts"], e)
+        want = moe._plain(x, token, weight, offsets, lp["experts"])
+        gap = ((got - want).abs().max() / want.abs().max()).item()
+        _require(gap <= testing.MOE_BAND,
+                 f"grouped_swiglu: {tokens} tokens off the plain twin by "
+                 f"{gap:.3g} of the largest output")
+        worst = max(worst, gap)
+        counts = torch.diff(offsets).tolist()
+        routed, active = sum(counts), sum(c > 0 for c in counts)
+        step = tokens <= moe.STEP_ROWS
+        ms = _time_ms(lambda: moe.routed_experts(x, r, lp["experts"], e),
+                      20 if step else 5)
+        plain_ms = _time_ms(lambda: moe._plain(x, token, weight, offsets,
+                                               lp["experts"]), 2)
+        bound, by = _bound(*_expert_work(arch, routed, active), "bf16")
+        rows_ms[tokens] = (ms, plain_ms, bound, by)
+        print(f"phase 12 grouped_swiglu: {tokens} tokens, {routed} routed "
+              f"rows over {active} experts ({'step' if step else 'block'} "
+              f"tiles), rel err {gap:.3g}; {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+              f"{100 * bound / ms:.1f}%)", flush=True)
+        del y, r, x, got, want
+
+    # the main path: one batch of 64 windows, each decoding 96 tokens
+    # (every id from <|endoftext|> on suppressed, so no row ends early)
+    pipe.gen_opts = replace(
+        pipe.gen_opts, max_new_tokens=96, temperatures=(0.0,),
+        compression_ratio_threshold=None, logprob_threshold=None,
+        no_speech_threshold=None, force_unique_generate_call=True,
+        suppress_tokens=tuple(range(
+            testing.SPEECH_LM_SPECIALS["<|endoftext|>"], arch.vocab_size)))
+    rng = np.random.default_rng(12)
+    audios = [testing.tone_audio(10.0, seed=i) * float(rng.uniform(0.3, 1))
+              for i in range(64)]
+    moe.grouped_swiglu.launches = 0
+    with tracing.recording() as recs:
+        out = pipe([{"raw": a, "sampling_rate": testing.SR} for a in audios],
+                   return_timestamps=False)
+        torch.cuda.synchronize()
+    launches = moe.grouped_swiglu.launches
+    decodes = [r for r in recs if r.name == "cw.decode"]
+    steps = sum(r.counts["steps"] for r in decodes)
+    want = 2 * arch.num_hidden_layers * (len(decodes) + steps)
+    _require(len(out) == len(audios) and all(
+        isinstance(o.get("text"), str) and o["text"] for o in out),
+        "speech LM: a result without text")
+    _require(launches == want > 0,
+             f"grouped_swiglu: {launches} launches on the main path, "
+             f"{want} expected")
+    print(f"phase 12 speech LM main path: {len(audios)} recordings, "
+          f"{len(decodes)} window batch(es), {steps} steps, {launches} "
+          f"grouped_swiglu launches", flush=True)
+    del pipe, params
+    torch.cuda.empty_cache()
+    ms, plain_ms, bound, by = rows_ms[64]
+    return {"name": "grouped_swiglu", "route": "cuda",
+            "source": "crisperwhisper_tpu_torch/csrc/moe.cu",
+            "replaces": "none (the JAX package has no mixture of experts)",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "prefill_ms": rows_ms[64 * prompt][0],
+            "prefill_bound_ms": rows_ms[64 * prompt][2]}, launches
+
+
 def _large_params():
     import torch
     from crisperwhisper_tpu_torch.config import WhisperArch
@@ -2440,6 +2579,8 @@ def main() -> int:
             for name, n in phase11_parallel(tmp, large, card,
                                             phase4_results).items():
                 launches[name] += n
+            moe_entry, launches["grouped_swiglu"] = phase12_speech_moe(tmp)
+            entries.append(moe_entry)
         launches["decode_step"] += spec["decode_step"]
         launches["ring_write"] = spec["ring_write"]
         _require(not any(m.split(".")[0] in ("jax", "crisperwhisper_tpu")

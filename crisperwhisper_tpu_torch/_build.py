@@ -29,7 +29,7 @@ not report it.
 
 ``launcher`` is the lean path from a wrapper to its C entry (the
 alignment prep, the DTW, the ring writes, the log-mel, the decode
-attention and the probe): the raw handle
+attention, the grouped expert kernel and the probe): the raw handle
 of PyTorch's current stream (``current_stream``, no Python Stream
 object), a device guard only when the tensors' device is not the current
 one, one ctypes call, and ``check``.
@@ -56,7 +56,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("encoder_attention.cu", "align_prep.cu", "dtw.cu",
            "decode_step.cu", "ring_write.cu", "log_mel.cu",
-           "decode_attention.cu", "probe.cu")
+           "decode_attention.cu", "moe.cu", "probe.cu")
 HEADERS = ("launch.cuh",)       # included by sources; part of the digest
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -180,6 +180,9 @@ def _load() -> Kernels:
         entry.restype = i32
     lib.cw_decode_gemv_attention.argtypes = [ptr] * 9 + [i32] * 12 + [ptr]
     lib.cw_decode_gemv_attention.restype = i32
+    for entry in (lib.cw_moe_gate_up, lib.cw_moe_down):
+        entry.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        entry.restype = i32
     lib.cw_probe_add.argtypes = [ptr, ptr, i32, ptr]
     lib.cw_probe_add.restype = i32
     lib.cw_error_string.argtypes = [i32]

@@ -16,6 +16,14 @@ batch 1, ``decode_step_rows`` at 2-8 rows, under the reference's gates
 (greedy.py:160-201), which a key mask or a position offset closes;
 anything else takes models/whisper.decode_step. The port reads only the
 live ring prefix, so it has no staged ring growth.
+
+A speech LM (``models/speech_moe.SpeechMoEArch``), decided
+once a decode, runs the same loop and token selection on its own cache
+(self K/V only), prefill (the prompt with the audio embeddings spliced
+in, ``encoder_out`` being the adapter's output) and one-token step; it
+has no alignment rows, no timestamp grammar and no no-speech
+probability. While spans record, it records its routing on the device
+(``DecodeResult.routing``).
 """
 
 from __future__ import annotations
@@ -27,8 +35,10 @@ import torch
 
 from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
+from ..models import speech_moe
 from ..models.whisper import decode_step, decode_step_multi, init_cache
 from ..ops import decode_step as step_kernel
+from ..utils import tracing
 from ..utils.tracing import trace_span
 from .processors import TimestampState, process_scores
 
@@ -46,6 +56,8 @@ class DecodeResult:
     align_probs: [B, A, max_new, K] f32 — alignment-head cross-attention
       rows for the generated query tokens (generation_whisper.py:336-337).
     steps: host int — iterations of the decode loop after the prefill.
+    routing: a speech LM's routing record (models/speech_moe
+      .RoutingRecord), or None.
     """
     sequences: torch.Tensor
     num_generated: torch.Tensor
@@ -53,6 +65,7 @@ class DecodeResult:
     no_speech_probs: torch.Tensor
     align_probs: torch.Tensor
     steps: int
+    routing: speech_moe.RoutingRecord | None = None
 
 
 def _no_speech_prob(logits: torch.Tensor, no_speech: int) -> torch.Tensor:
@@ -118,10 +131,21 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     n_align = align_sel.shape[-1] if align_sel is not None else 1
     eot = specials.eot
 
+    speech_lm = isinstance(arch, speech_moe.SpeechMoEArch)
     with trace_span("cw.decode.cache", rows=b):
-        cache = init_cache(params, arch, encoder_out, cache_len=t_total,
-                           cross_dtype=cross_cache_dtype,
-                           self_dtype=self_cache_dtype)
+        if speech_lm:
+            cache = speech_moe.init_cache(arch, b, t_total, encoder_out.dtype,
+                                          dev, recording=tracing.active())
+        else:
+            cache = init_cache(params, arch, encoder_out, cache_len=t_total,
+                               cross_dtype=cross_cache_dtype,
+                               self_dtype=self_cache_dtype)
+    if speech_lm:
+        audio_at = speech_moe.audio_offset(specials, encoder_out.shape[1])
+        if tuple(prompt[0].tolist()) != specials.prompt:
+            raise ValueError("a speech LM decodes its own window prompt")
+        sot_position = -1                  # no no-speech probability
+        return_timestamps = False          # nor timestamp tokens
     prompt = prompt.to(device=dev, dtype=torch.long)
     tokens = torch.cat([prompt, torch.full((b, max_new_tokens), eot,
                                            dtype=torch.long, device=dev)], 1)
@@ -134,12 +158,16 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
     t = 0
     if p > 1:
         with trace_span("cw.decode.prefill", rows=b, tokens=p - 1):
-            prefill_logits, cache, _ = decode_step_multi(
-                params, arch, prompt[:, :p - 1], 0, cache,
-                key_mask=key_mask, pos_offset=pos_offset)
-            if sot_position <= p - 2:
-                no_speech = _no_speech_prob(prefill_logits[:, sot_position],
-                                            specials.no_speech)
+            if speech_lm:
+                cache = speech_moe.prefill(params, arch, prompt[:, :p - 1],
+                                           encoder_out, audio_at, cache)
+            else:
+                prefill_logits, cache, _ = decode_step_multi(
+                    params, arch, prompt[:, :p - 1], 0, cache,
+                    key_mask=key_mask, pos_offset=pos_offset)
+                if sot_position <= p - 2:
+                    no_speech = _no_speech_prob(
+                        prefill_logits[:, sot_position], specials.no_speech)
         t = p - 1
 
     state = TimestampState.init(b, dev)
@@ -149,7 +177,7 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
                             dtype=torch.float32, device=dev)
 
     # the whole-step kernel, decided once per decode as in the reference
-    plain = key_mask is None and pos_offset is None
+    plain = key_mask is None and pos_offset is None and not speech_lm
     use_b1_kernel = (opts.b1_decode_kernel and b == 1 and plain
                      and step_kernel.supported(params, arch, cache, key_mask,
                                                1, 0, prompt[:, 0]))
@@ -157,7 +185,11 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
                        and step_kernel.supported_rows(params, arch, cache,
                                                       key_mask, 0,
                                                       prompt[:, 0]))
-    if use_b1_kernel or use_rows_kernel:
+    if speech_lm:
+        def step(params, arch, tokens, t, cache, align_sel=None):
+            return (speech_moe.decode_step(params, arch, tokens, t, cache),
+                    cache, None)
+    elif use_b1_kernel or use_rows_kernel:
         step = (step_kernel.decode_step_b1 if use_b1_kernel
                 else step_kernel.decode_step_rows)
     else:
@@ -172,7 +204,7 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
             logits, cache, align = step(params, arch, tokens[:, t], t,
                                         cache, align_sel=align_sel)
         with trace_span("cw.decode.select"):
-            if t >= p:
+            if t >= p and align is not None:
                 # record alignment rows for generated-query steps
                 slot = align_buf[:, :, t - p]
                 slot.copy_(torch.where(finished[:, None, None], slot, align))
@@ -215,4 +247,5 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
                         sum_logprobs=sum_logprobs,
                         no_speech_probs=no_speech,
                         align_probs=align_buf,
-                        steps=t - p + 1)
+                        steps=t - p + 1,
+                        routing=cache.routing if speech_lm else None)

@@ -21,9 +21,16 @@ prefix each window's init tokens with the user prompt or the previous
 segments' tokens (hf generation_whisper.py:1875-1943).
 
 Spans (utils/tracing.py): ``cw.seek`` a seek pass (live rows, bucket);
-in each window batch ``cw.encode``, ``cw.decode`` (rows, loop steps),
-``cw.align_tail`` and ``cw.readback``, the one wait; ``cw.segments`` the
-host bookkeeping after it (fallback gates, segment extraction).
+in each window batch ``cw.encode``, ``cw.decode`` (rows, loop steps; a
+speech LM's routing counts, read back with the rest), ``cw.align_tail``
+and ``cw.readback``, the one wait; ``cw.segments`` the host bookkeeping
+after it (fallback gates, segment extraction).
+
+A speech LM (``models/speech_moe.SpeechMoEArch``; its ``specials`` are
+``speech_moe.SpeechLMTokens``) takes the same seek pass: ``encode`` gives its
+audio embeddings, each window decodes its fixed prompt
+(``SpeechLMTokens.prompt``) through ``greedy_decode``, and it has no
+word times, beams or speculation.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ import torch.distributed as dist
 
 from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
-from ..models.whisper import INT4, INT8, alignment_selector, encode
+from ..models import speech_moe, whisper
+from ..models.whisper import INT4, INT8, alignment_selector
 from ..ops.alignment import attention_to_jump_times
 from ..utils.tracing import trace_span
 from .fallback import need_fallback
@@ -152,6 +160,14 @@ def _gather_rows(local: tuple, axis, eot: int) -> tuple:
             None if local[5] is None else join(5, 0.0))
 
 
+def encode(params, arch, input_features: torch.Tensor) -> torch.Tensor:
+    """A window batch's encoder states [B, n_mels, 3000] -> [B, K, d]:
+    the Whisper encoder's, or a speech LM's audio embeddings."""
+    if isinstance(arch, speech_moe.SpeechMoEArch):
+        return speech_moe.encode(params, arch, input_features)
+    return whisper.encode(params, arch, input_features)
+
+
 def _decode_rows(params, arch, specials, opts, segment_features, prompt,
                  max_new, suppress, begin_suppress, align_sel, temperature,
                  generator, dtw_frames, prompt_mask=None, sot_position=0,
@@ -178,6 +194,7 @@ def _decode_rows(params, arch, specials, opts, segment_features, prompt,
     prompt = torch.from_numpy(prompt)
     use_beams = opts.num_beams > 1 and temperature == 0.0
     normalized = use_beams
+    routing = None
     with trace_span("cw.decode", rows=rows) as span:
         if use_beams:
             from .beam import beam_decode
@@ -201,6 +218,7 @@ def _decode_rows(params, arch, specials, opts, segment_features, prompt,
             res = greedy_decode(params, arch, specials, opts, encoder_out,
                                 prompt, temperature=temperature,
                                 generator=generator, **kw)
+            routing = res.routing
         span.count(steps=res.steps)
     if not use_beams:
         score = res.sum_logprobs
@@ -212,11 +230,17 @@ def _decode_rows(params, arch, specials, opts, segment_features, prompt,
             outs.append(attention_to_jump_times(
                 res.align_probs, opts.median_filter_width, n_tokens,
                 torch.as_tensor(dtw_frames, dtype=torch.int32)))
+    n_out = len(outs)
+    if routing is not None:
+        outs += routing.counts(arch.num_experts)
     # single read-back: queue every device->host copy, then wait once
     with trace_span("cw.readback", rows=rows):
         host = [x.to("cpu", non_blocking=True) for x in outs]
         if encoder_out.device.type == "cuda":
             torch.cuda.current_stream(encoder_out.device).synchronize()
+    if routing is not None:
+        span.count(routing_prefill=host[n_out].tolist(),
+                   routing_steps=host[n_out + 1].tolist())
     seqs, ngen, score, no_sp = (h.numpy() for h in host[:4])
     jump_times = None
     if align_sel is not None:
@@ -287,7 +311,15 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
                   else None)
     seek = np.zeros((b,), np.int64)
 
-    if detect_language_first and language_token is None:
+    speech_lm = isinstance(arch, speech_moe.SpeechMoEArch)
+    if speech_lm and (opts.return_token_timestamps or opts.num_beams > 1
+                      or assistant is not None or opts.prompt_ids
+                      or opts.condition_on_prev_tokens):
+        raise ValueError("a speech LM decodes its window prompt greedily or "
+                         "by sampling, without word times")
+    if speech_lm:
+        init_tokens = np.tile(np.asarray(specials.prompt, np.int32), (b, 1))
+    elif detect_language_first and language_token is None:
         # one batched detection on the first 30 s window per row
         # (hf _retrieve_init_tokens :1584 detects once, not per seek)
         from .language import detect_language
@@ -341,10 +373,12 @@ def generate(params: Any, arch: WhisperArch, specials: SpecialTokens,
     # the conditioned prefix begins with <|startofprev|>, or in
     # all-segments mode with the whole user prompt (hf _pad_to_max_length
     # never trims the bos tokens)
-    cond_bos = (prompt_ids.astype(np.int64)
-                if (prompt_ids is not None
-                    and opts.prompt_condition_type == "all-segments")
-                else np.asarray([specials.sot_prev], np.int64))
+    cond_bos = None
+    if conditioning:
+        cond_bos = (prompt_ids.astype(np.int64)
+                    if (prompt_ids is not None
+                        and opts.prompt_condition_type == "all-segments")
+                    else np.asarray([specials.sot_prev], np.int64))
     prev_width = (cut_off + len(cond_bos)) if conditioning else 0
     # rows start out willing to condition (hf :1316); window 1 still
     # decodes bare unless the prompt seeded the segments below

@@ -21,6 +21,7 @@ from .config import (FeatureConfig, GenerationOptions, PipelineOptions,
                       WhisperArch, load_checkpoint_configs)
 from .tokenizer.whisper_tokenizer import WhisperTokenizer
 
+from .models import speech_moe
 from .models.loader import load_params
 from .pipeline.asr import ASRPipeline, specials_from_tokenizer
 
@@ -160,7 +161,15 @@ def load_pipeline(model_dir: str, *,
     unfused, so the column split stays head-aligned), every chunk batch is
     split over "data", and pipe_opts.batch_size must be a multiple of the
     data axis. Every rank builds the pipeline; rank 0 makes the calls and
-    the others run ``pipe.follow()`` (pipeline/asr.py)."""
+    the others run ``pipe.follow()`` (pipeline/asr.py).
+
+    A checkpoint whose ``config.json`` has ``model_type`` ``grin_qwen2_vl``
+    is a speech LM (models/speech_moe.py): it is served from ``params``
+    (its safetensors are not read yet), on one device, without
+    quantization or an assistant, as text without word times
+    (``pipe(..., return_timestamps=False)``); its tokenizer files hold
+    Qwen2's special tokens, and each window decodes the fixed prompt of
+    ``speech_moe.speech_tokens``."""
     if isinstance(quantize, str) and quantize != "serving":
         raise ValueError(f"quantize={quantize!r}: use False, True, or "
                          "'serving'")
@@ -171,6 +180,9 @@ def load_pipeline(model_dir: str, *,
         check_device(mesh, device, "load_pipeline")
     model_dir = resolve_checkpoint(model_dir)
     cfgs = load_checkpoint_configs(model_dir)
+    if cfgs["config"].get("model_type") == speech_moe.MODEL_TYPE:
+        return _speech_lm_pipeline(model_dir, cfgs, params, gen_opts,
+                                   pipe_opts, quantize, assistant, mesh)
     arch = WhisperArch.from_hf_config(cfgs["config"])
     sharded = False
     if params is None:
@@ -208,13 +220,7 @@ def load_pipeline(model_dir: str, *,
     if kw:
         opts = replace(opts, **kw)
 
-    pp = cfgs["preprocessor_config"]
-    feat_cfg = FeatureConfig(
-        feature_size=pp.get("feature_size", arch.num_mel_bins),
-        sampling_rate=pp.get("sampling_rate", 16000),
-        n_fft=pp.get("n_fft", 400),
-        hop_length=pp.get("hop_length", 160),
-        chunk_length=pp.get("chunk_length", 30))
+    feat_cfg = _feature_config(cfgs["preprocessor_config"], arch)
 
     assistant_obj: Any = None
     if assistant == "prompt_lookup":
@@ -242,3 +248,36 @@ def load_pipeline(model_dir: str, *,
         if not lang_defined:
             pipe.detect_language = True
     return pipe
+
+
+def _speech_lm_pipeline(model_dir: str, cfgs: dict, params: Any | None,
+                        gen_opts: GenerationOptions | None,
+                        pipe_opts: PipelineOptions, quantize: bool | str,
+                        assistant: str | None, mesh: Any | None
+                        ) -> ASRPipeline:
+    """``load_pipeline`` of a speech LM checkpoint (see there)."""
+    arch = speech_moe.SpeechMoEArch.from_hf_config(cfgs["config"])
+    if params is None:
+        raise ValueError(f"{cfgs['config']['model_type']}: no reader of its "
+                         "safetensors yet; pass params=")
+    if quantize or assistant is not None or mesh is not None:
+        raise ValueError("a speech LM is served unquantized, without an "
+                         "assistant, on one device")
+    tokenizer = WhisperTokenizer.from_dir(model_dir)
+    opts = gen_opts or load_generation_options(cfgs["generation_config"])
+    return ASRPipeline(params, arch, tokenizer,
+                       specials=speech_moe.speech_tokens(tokenizer, arch),
+                       gen_opts=replace(opts, return_timestamps=False),
+                       pipe_opts=pipe_opts,
+                       feat_cfg=_feature_config(cfgs["preprocessor_config"],
+                                                arch))
+
+
+def _feature_config(pp: dict, arch) -> FeatureConfig:
+    """The feature extractor of a parsed preprocessor_config.json."""
+    return FeatureConfig(
+        feature_size=pp.get("feature_size", arch.num_mel_bins),
+        sampling_rate=pp.get("sampling_rate", 16000),
+        n_fft=pp.get("n_fft", 400),
+        hop_length=pp.get("hop_length", 160),
+        chunk_length=pp.get("chunk_length", 30))

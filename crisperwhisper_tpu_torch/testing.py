@@ -13,7 +13,10 @@ a tokenizer only; the caller builds random weights with
   * ``write_large_v3_configs``: the full large-v3 geometry with the
     standard multilingual layout and full text-id coverage
     (scripts/make_bench_ckpt.py ``ensure_bench_checkpoint`` without
-    weights).
+    weights);
+  * ``write_speech_moe_configs`` and ``speech_moe_params``: a speech LM
+    (models/speech_moe.py) at any geometry, with Qwen2's specials, and
+    its random weights.
 
 tests/test_torch_pipeline.py checks that both write the same files as
 those originals.
@@ -96,6 +99,13 @@ MEL_BAND = 2e-4
 # two f32 sums a few ulps apart may round to neighbouring bf16 values.
 DA_PROBS_BAND = 1e-6
 DA_OUT_REL_BAND = 1e-3
+
+# The grouped expert kernel against its plain twin, relative to the
+# largest output: both multiply bf16 operands exactly and sum in f32, in
+# other orders; where the two gate/up sums round silu(gate) * up to
+# neighbouring bf16 values (about one element in a thousand), the down
+# product moves by ~1e-4 of the output's size
+MOE_BAND = 2e-3
 
 TINY = dict(
     vocab_size=1000, d_model=64, encoder_layers=2, decoder_layers=2,
@@ -222,6 +232,84 @@ def write_large_v3_configs(path: str, arch: WhisperArch | None = None) -> str:
         "feature_size": arch.num_mel_bins, "sampling_rate": SR,
         "n_fft": 400, "hop_length": 160, "chunk_length": 30})
     return path
+
+
+# Qwen2's specials and Qwen2.5-Omni's audio tokens (speech_moe's prompt)
+SPEECH_LM_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644,
+                      "<|im_end|>": 151645, "<|AUDIO|>": 151646,
+                      "<|audio_start|>": 151647, "<|audio_end|>": 151648}
+
+
+def write_speech_moe_configs(path: str, hf_config: dict) -> str:
+    """A speech-LM checkpoint directory without weights (``model_type``
+    ``grin_qwen2_vl``, models/speech_moe.py): ``hf_config`` as its
+    config.json, every text id below <|endoftext|> a space-led word,
+    Qwen2's specials, 30 s windows."""
+    os.makedirs(path, exist_ok=True)
+    eot = SPEECH_LM_SPECIALS["<|endoftext|>"]
+    vocab = {tok: i for i, tok in enumerate(bytes_to_unicode().values())}
+    for i in range(len(vocab), eot):
+        vocab[f"Ġw{_base36(i)}"] = i
+    _write_tokenizer(path, vocab, [], SPEECH_LM_SPECIALS)
+    _write_json(os.path.join(path, "config.json"), hf_config)
+    _write_json(os.path.join(path, "generation_config.json"), {
+        "eos_token_id": SPEECH_LM_SPECIALS["<|im_end|>"],
+        "pad_token_id": eot})
+    _write_json(os.path.join(path, "preprocessor_config.json"), {
+        "feature_size": hf_config.get("audio_config", {}).get(
+            "num_mel_bins", 128), "sampling_rate": SR, "n_fft": 400,
+        "hop_length": 160, "chunk_length": 30})
+    return path
+
+
+def speech_moe_params(arch, gen: torch.Generator, device,
+                      dtype: torch.dtype) -> dict:
+    """Random weights of a ``models.speech_moe.SpeechMoEArch`` in the
+    port's layout: the Whisper encoder of ``models.whisper.init_params``,
+    then dense N(0, 1 / fan_in) (queries and keys 1.5 times that), token
+    embeddings N(0, 1), the router f32
+    at 2 / sqrt(hidden), biases N(0, 0.02), RMSNorm weights f32 around 1
+    (the benchmark's scales, portbench/archs/grin_qwen2_vl.py)."""
+    import dataclasses
+    import math
+
+    from .models.whisper import init_params
+    audio = dataclasses.replace(arch.audio, decoder_layers=0, vocab_size=1,
+                                max_target_positions=1)
+    enc = init_params(audio, gen, device, dtype)["encoder"]
+
+    def draw(*shape, std, dt=dtype):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=dt).mul_(std)
+
+    def lin(d_in, d_out, bias=True, gain=1.0):
+        p = {"w": draw(d_out, d_in, std=gain / math.sqrt(d_in))}
+        if bias:
+            p["b"] = draw(d_out, std=0.02)
+        return p
+
+    def norm(d):
+        return {"scale": draw(d, std=0.02, dt=torch.float32).add_(1.0)}
+
+    d, f, e = arch.hidden_size, arch.expert_dim, arch.num_experts
+    kv = arch.num_key_value_heads * arch.head_dim
+    s = arch.shared_experts * arch.shared_dim
+    layers = [{"ln1": norm(d),
+               "attn": {"q": lin(d, d, gain=1.5), "k": lin(d, kv, gain=1.5),
+                        "v": lin(d, kv), "o": lin(d, d, bias=False)},
+               "ln2": norm(d),
+               "router": {"w": draw(e + arch.null_experts, d,
+                                    std=2 / math.sqrt(d), dt=torch.float32)},
+               "shared": {"gate": lin(d, s, False), "up": lin(d, s, False),
+                          "down": lin(s, d, False)},
+               "experts": {"gate": draw(e, f, d, std=d ** -0.5),
+                           "up": draw(e, f, d, std=d ** -0.5),
+                           "down": draw(e, d, f, std=f ** -0.5)}}
+              for _ in range(arch.num_hidden_layers)]
+    return {"encoder": enc, "adapter": lin(arch.audio.d_model, d),
+            "decoder": {"tok_emb": draw(arch.vocab_size, d, std=1.0),
+                        "layers": layers, "norm": norm(d),
+                        "head": lin(d, arch.vocab_size, bias=False)}}
 
 
 def tone_audio(seconds: float = 12.0, seed: int = 0) -> np.ndarray:

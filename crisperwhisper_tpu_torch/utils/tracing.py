@@ -7,8 +7,14 @@ opens ``cw.*`` spans at its layer boundaries (``pipeline/asr.py``:
 ``cw.align_tail``, ``cw.readback``, ``cw.segments``;
 ``decoding/greedy.py``: ``cw.decode.cache``, ``cw.decode.prefill`` and,
 in each loop iteration, ``cw.decode.step``, ``cw.decode.select``,
-``cw.decode.sync``), each with the counts of its boundary (rows, steps,
-recordings).
+``cw.decode.sync``; ``models/speech_moe.py``: ``cw.encode.adapter``),
+each with the counts of its boundary (rows, steps, recordings). A speech
+LM's decode records its routing on the device while spans record
+(``active()``, decided once a decode; no launch of its own in a step),
+counts it once a decode and attaches the counts, read back with the
+window batch's one copy, to its ``cw.decode`` record as
+``routing_prefill`` and ``routing_steps`` (``models/speech_moe
+.RoutingRecord.counts``).
 
 A span is off unless a ``torch.profiler`` runs or a ``recording()``
 scope is open. Off, it checks that and returns a shared no-op: no
@@ -156,10 +162,16 @@ class _Span:
         return None
 
 
+def active() -> bool:
+    """Whether spans record now (a profiler runs or a ``recording()``
+    scope is open)."""
+    return _recording or _profiler_enabled()
+
+
 def trace_span(name: str, **counts):
     """A span named ``name`` with ``counts`` (``with trace_span(...) as
     s``; ``s.count(steps=n)`` adds counts later). Off, a shared no-op."""
-    if not (_recording or _profiler_enabled()):
+    if not active():
         return _OFF
     return _Span(name, counts)
 

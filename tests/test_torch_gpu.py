@@ -1435,3 +1435,35 @@ def test_one_token_step_routes_through_kernel_9(gen, monkeypatch):
         want = torch.softmax(scores[:, 0], dim=-1)
         err = (aligned[:, slot] - want).abs().max().item()
         assert err <= testing.DA_PROBS_BAND, (slot, err)
+
+
+@pytest.mark.parametrize("rows", [64, 4096])
+def test_grouped_expert_kernel_matches_plain(gen, rows):
+    """One layer of Uni-MoE-2.0-Omni's routed experts at published widths
+    (4 experts of 18944 over 3584, a null expert, top-p 0.7 capped at
+    2): the kernel against the plain path on the same routing; the null
+    expert's rows never reach either."""
+    from crisperwhisper_tpu_torch.ops import moe
+    d, f, e = 3584, 18944, 4
+    g = torch.Generator(device="cuda").manual_seed(rows)
+
+    def draw(*shape, std):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(
+            torch.bfloat16)
+
+    experts = {"gate": draw(e, f, d, std=d ** -0.5),
+               "up": draw(e, f, d, std=d ** -0.5),
+               "down": draw(e, d, f, std=f ** -0.5)}
+    x = draw(rows, d, std=1.0)
+    router = torch.randn((e + 1, d), generator=g, device="cuda") * 2 / d ** .5
+    r = moe.route(x, router, e, 0.7, 2)
+    assert r.kept[:, e].any() and (r.kept.sum(-1) == 1).any()
+    token, weight, offsets = moe.expert_pairs(r, e)
+    assert int(offsets[-1]) == int(r.kept[:, :e].sum())
+    before = moe.grouped_swiglu.launches
+    got = moe.routed_experts(x, r, experts, e)
+    torch.cuda.synchronize()
+    assert moe.grouped_swiglu.launches == before + 2
+    want = moe._plain(x, token, weight, offsets, experts)
+    gap = ((got - want).abs().max() / want.abs().max()).item()
+    assert gap <= testing.MOE_BAND, gap
