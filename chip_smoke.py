@@ -56,7 +56,14 @@ Phases, one line each on stdout:
      shapes (large-v3, B = 64: the bf16 cross cache [32, 64, 20, 1500, 64]
      with a one-slot sel, the bf16 self ring [32, 64, 20, 100, 64] at
      position 60), there also through bind_decode_gemv, as
-     models/whisper.py calls it; each decode-attention row with the
+     models/whisper.py calls it; at the graphed step's bulk shapes (16
+     and 64 rows, a bf16 self ring of 99) the stacked-cache attention at
+     a 0-d int32 position on the device (-1, 0, 61, 98) within its bands
+     of the plain version, and the ring write of one column a row at
+     that position copied to every row (0, 61, 98) bit-identical to its
+     plain version, each then captured in a CUDA graph and replayed with
+     the position moved in place, equal to the integer form's bytes;
+     each decode-attention row with the
      cluster size its plan picked, timed per call and, from a CUDA graph,
      on the device; the probe kernel, exact, timed per call and from a
      CUDA graph. Each timed kernel also prints
@@ -89,14 +96,22 @@ Phases, one line each on stdout:
   4. the full large-v3 geometry with random bf16 weights built on the
      card: load_pipeline answers a 60 s WAV file and a 12 s array with
      word timestamps and adjust_pauses=0.12, each with its wall and the
-     process's CPU seconds inside it; every kernel's launch count
+     process's CPU seconds inside it, both under torch.profiler and a
+     recording() of the program's spans; every kernel's launch count
      is reset just before and read just after, and must be > 0 for the
-     encoder attention, the alignment prep, the DTW and the stacked-cache
-     attention (the one-token step's attentions); every
-     encoder-attention launch must have taken the tensor-core route; the
-     alignment tail (attention_to_jump_times: align prep + DTW) of each
-     request is timed between CUDA events, with its calls and its share
-     of the wall;
+     encoder attention, the alignment prep and the DTW; the stacked-cache
+     attention (kernel 9) and the ring write (kernel 6), which the
+     one-token step runs inside its CUDA graph, are counted in the device
+     trace, and must equal two a layer and one a layer for every
+     cw.decode.step record, where each decode (cw.decode.cache) has one
+     cw.decode.capture and one eager step, the others replays (``graph``
+     1), the captures' host ms printed; every encoder-attention launch
+     must have taken the tensor-core
+     route; the alignment tail (attention_to_jump_times: align prep +
+     DTW) of each request is timed between CUDA events, with its calls
+     and its share of the wall; then the plain step captured as one CUDA
+     graph at a device position, 16 and 64 rows, a ring of 99: its device
+     time over 20 replays (CUDA events);
   5. the same weights through load_pipeline(quantize="serving") with
      b1_decode_kernel: the 12 s array (batch 1, decode_step_b1) and the
      60 s WAV (3 windows, decode_step_rows), counts reset before each
@@ -209,8 +224,8 @@ Phases, one line each on stdout:
      cw.decode records count, every result non-empty text.
 Then a JSON line with one entry per kernel (launches: phases 4, 9, 10 and
 11 for the first three, over every rank in phase 11, phases 5, 6, 7 and
-9 for the decode step, phase 6 (a) for the ring write, phases 4 and 8
-for the stacked-cache attention, phase 8 for the other four, phase 12
+9 for the decode step, phases 4 (on the device) and 6 (a) for the ring
+write, phases 4 (on the device) and 8 for the stacked-cache attention, phase 8 for the other four, phase 12
 (b) for the grouped expert kernel), the card's
 name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -1021,6 +1036,88 @@ def phase2_remaining(large) -> list[dict]:
               flush=True)
         del q, k, v, attend
 
+    # --- the graphed one-token step's position on the device
+    # (decoding/greedy.py), at the bulk shapes: large-v3, 16 and 64 rows,
+    # the self ring of a 3-token prompt + 96 new tokens. Kernel 9 reads a
+    # 0-d int32 position; the ring write (kernel 6) takes it copied to
+    # every row. Each eager against its plain version, then captured once
+    # in a CUDA graph and replayed with the position moved in place.
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    ring = 3 + 96
+    at = torch.zeros((), dtype=torch.int32, device=dev)
+    for n_b in (16, 64):
+        shape = (arch.decoder_layers, n_b, 20, ring, 64)
+        li = shape[0] - 1
+        q = (torch.randn((n_b, 20, 64), generator=own, device=dev)
+             / 8).to(torch.bfloat16)
+        k, v = (torch.randn(shape, generator=own, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        positions = (-1, 0, 61, ring - 1)
+        worst = {}
+        for pos in positions:
+            at.fill_(pos)
+            for key, (err, band) in testing.decode_gemv_errors(
+                    q, k, v, li, position=at).items():
+                _require(err <= band, f"decode_gemv_attention at a device "
+                         f"position {pos}, {n_b} rows: {key} max err {err} "
+                         f"> {band}")
+                worst[key] = max(worst.get(key, 0.0),
+                                 err / band if band else 0.0)
+        attend = da.bind_decode_gemv(torch.bfloat16, k, v)
+        wants = [attend(q, li, pos) for pos in positions]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = attend(q, li, at)
+        for pos, want in reversed(list(zip(positions, wants))):
+            at.fill_(pos)
+            graph.replay()
+            torch.cuda.synchronize()
+            _require(torch.equal(captured, want), f"decode_gemv_attention "
+                     f"replayed at position {pos}, {n_b} rows: not the "
+                     "integer form's bytes")
+        device_ms = _graph_ms(lambda: attend(q, li, at), 20)
+        del q, k, v, attend, graph, captured, wants
+
+        pairs, _ = testing.ring_write_inputs(arch, n_b, 1, ring, "bf16", own)
+        for pos in positions[1:]:
+            at.fill_(pos)
+            err = testing.ring_write_error(pairs, li,
+                                           at.expand(n_b).contiguous())
+            _require(err == 0, f"ring_write at a device position {pos}, "
+                     f"{n_b} rows: {err} bytes differ")
+        plan = rw.ring_plan([r for r, _ in pairs])
+
+        def write():
+            rw.write_block_columns_group(pairs, li,
+                                         at.expand(n_b).contiguous(), plan)
+        write()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            write()
+        for pos in reversed(positions[1:]):
+            want = [(r.clone(), blk) for r, blk in pairs]
+            rw.write_block_columns_plain(
+                want, li, torch.full((n_b,), pos, dtype=torch.int32))
+            at.fill_(pos)
+            graph.replay()
+            torch.cuda.synchronize()
+            err = sum(int((g.view(torch.uint8) != w.view(torch.uint8)).sum())
+                      for (g, _), (w, _) in zip(pairs, want))
+            _require(err == 0, f"ring_write replayed at position {pos}, "
+                     f"{n_b} rows: {err} bytes differ")
+        write_ms = _graph_ms(write, 20)
+        del pairs, graph, want
+        print(f"phase 2 graphed step's device position, {n_b} rows, self "
+              f"ring [{', '.join(map(str, shape))}] bf16, layer {li}: "
+              f"decode_gemv_attention at positions {list(positions)} "
+              "within its bands (worst " + ", ".join(
+                  f"{key} {r:.3g} of its band" for key, r in worst.items())
+              + "), replayed from a CUDA graph with the position moved in "
+              f"place: the integer form's bytes, {device_ms:.4f} ms on the "
+              f"device; ring_write (one column a row) at {list(positions[1:])}"
+              " bit-identical to its plain version, eager and replayed, "
+              f"{write_ms:.4f} ms on the device", flush=True)
+
     # --- the probe: x * 2 on one (8, 128) f32 tile, exact
     x = torch.randn((8, 128), generator=gen, device=dev)
     err = int((probe.probe_add(x) != x * 2.0).sum())
@@ -1213,6 +1310,50 @@ def _large_ckpt(tmp: str, arch) -> str:
                                           arch)
 
 
+def _replayed_step_ms(params, arch) -> dict[int, float]:
+    """Device milliseconds of the plain one-token step (all decoder
+    layers, the final LayerNorm, the tied LM head, the alignment heads'
+    rows) captured once as a CUDA graph at a position held on the device,
+    as the greedy loop replays it: CUDA events around 20 back-to-back
+    replays, at 16 and 64 rows, a random encoder output of 1500 frames
+    and a ring of 99 at position 60."""
+    import torch
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.models.whisper import (alignment_selector,
+                                                         decode_step,
+                                                         init_cache)
+    own = torch.Generator(device="cuda").manual_seed(13)
+    sel = alignment_selector(arch, testing.large_v3_align_heads(arch))
+    at = torch.full((), 60, dtype=torch.int32, device="cuda")
+    out = {}
+    for rows in (16, 64):
+        enc = torch.randn((rows, arch.max_source_positions, arch.d_model),
+                          generator=own, device="cuda").to(torch.bfloat16)
+        cache = init_cache(params, arch, enc, cache_len=99)
+        toks = torch.randint(0, arch.vocab_size, (rows,), generator=own,
+                             device="cuda")
+
+        def step():
+            decode_step(params, arch, toks, at, cache, align_sel=sel)
+        step()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        out[rows] = start.elapsed_time(stop) / 20
+        del enc, cache, graph
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase4_large(tmp: str, large) -> tuple[dict[str, int], list]:
     import numpy as np
     import torch
@@ -1220,6 +1361,7 @@ def phase4_large(tmp: str, large) -> tuple[dict[str, int], list]:
     from crisperwhisper_tpu_torch.hub import load_pipeline
     from crisperwhisper_tpu_torch.models.whisper import (decode_step, encode,
                                                          init_cache)
+    from crisperwhisper_tpu_torch.utils import tracing
 
     arch, params = large
     pipe = load_pipeline(_large_ckpt(tmp, arch), params=params, device="cuda",
@@ -1251,28 +1393,50 @@ def phase4_large(tmp: str, large) -> tuple[dict[str, int], list]:
     _reset_counts()
     results, walls, tails, cpu = [], [], [], []
     longform.attention_to_jump_times = timed_tail
+    # the device trace counts the kernels of the step's CUDA graph at every
+    # replay; the program's records say which steps were replays
+    cuda = torch.profiler.ProfilerActivity.CUDA
     try:
-        for req, _ in requests:
-            marks.clear()
-            t0, c0 = time.perf_counter(), time.process_time()
-            results.append(pipe(req, return_timestamps="word",
-                                adjust_pauses_threshold=0.12))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            cpu.append(time.process_time() - c0)
-            tails.append((sum(a.elapsed_time(b) for a, b in marks) / 1e3,
-                          len(marks)))
+        with torch.profiler.profile(activities=[cuda]) as prof, \
+                tracing.recording() as recs:
+            for req, _ in requests:
+                marks.clear()
+                t0, c0 = time.perf_counter(), time.process_time()
+                results.append(pipe(req, return_timestamps="word",
+                                    adjust_pauses_threshold=0.12))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                cpu.append(time.process_time() - c0)
+                tails.append((sum(a.elapsed_time(b) for a, b in marks)
+                              / 1e3, len(marks)))
     finally:
         longform.attention_to_jump_times = real_tail
     counts = _counts()
-    launches = {k: n for k, n in counts.items()
-                if k in ("encoder_attention", "align_prep", "dtw",
-                         "decode_gemv_attention")}
+    ran = testing.device_kernel_counts(prof, testing.STEP_KERNELS)
+    launches = {**{k: counts[k] for k in ("encoder_attention", "align_prep",
+                                          "dtw")}, **ran}
     peak = torch.cuda.max_memory_allocated()
+    steps = [r.counts["graph"] for r in recs if r.name == "cw.decode.step"]
+    capture_ms = [(r.end_ns - r.start_ns) / 1e6 for r in recs
+                  if r.name == "cw.decode.capture"]
+    captures = len(capture_ms)
+    decodes = sum(r.name == "cw.decode.cache" for r in recs)
 
     _check_results(requests, results)
     for name, n in launches.items():
         _require(n > 0, f"kernel {name} was not launched on the main path")
+    # every decode captures its step once after one eager step and replays
+    # it; each step, eager or replayed, runs kernel 9 for both attention
+    # halves of every layer and the ring write once a layer
+    n_layers = arch.decoder_layers
+    _require(decodes > 0 and captures == decodes
+             and len(steps) - sum(steps) == captures,
+             f"step graph: {captures} captures, {decodes} decodes, "
+             f"{len(steps) - sum(steps)} of {len(steps)} steps eager")
+    _require(ran == {"decode_gemv_attention": 2 * n_layers * len(steps),
+                     "ring_write": n_layers * len(steps)},
+             f"device kernels {ran} over {len(steps)} steps of "
+             f"{n_layers} layers")
     _require(counts["encoder_attention_tensor_cores"]
              == launches["encoder_attention"]
              and counts["encoder_attention_cuda_cores"] == 0,
@@ -1292,15 +1456,24 @@ def phase4_large(tmp: str, large) -> tuple[dict[str, int], list]:
         pipe.params, arch,
         torch.full((1,), pipe.specials.sot, device="cuda"), 0, cache)
     _require(bool(torch.isfinite(logits).all()), "logits hold NaN or inf")
+    del cache, logits
+    step_ms = _replayed_step_ms(pipe.params, arch)
 
     print(f"phase 4 ok: large-v3 bf16 random weights; requests 60 s file "
           f"{walls[0]:.2f} s wall ({len(results[0]['chunks'])} words), "
           f"12 s array {walls[1]:.2f} s wall "
           f"({len(results[1]['chunks'])} words), the process's CPU "
-          f"seconds in them {cpu[0]:.2f} and {cpu[1]:.2f} (the plain decode "
-          f"loop is host-bound: its wall follows the host's speed); peak "
-          f"device memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches}, encoder "
+          f"seconds in them {cpu[0]:.2f} and {cpu[1]:.2f} (under the "
+          f"profiler); peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches} (kernel 9 and the "
+          f"ring write counted on the device), {len(steps)} steps in "
+          f"{decodes} decodes, {sum(steps)} of them replays of "
+          f"{captures} captured graphs (capture {min(capture_ms):.2f}-"
+          f"{max(capture_ms):.2f} ms of host a decode, cw.decode.capture "
+          "records under the profiler); the plain step replayed from a "
+          "CUDA graph at a ring of 99, " + ", ".join(
+              f"{rows} rows {ms:.4f} ms on the device" for rows, ms in
+              step_ms.items()) + "; encoder "
           f"attention all {counts['encoder_attention_tensor_cores']} on "
           "the tensor-core route; alignment tail (CUDA events around "
           "attention_to_jump_times) " + ", ".join(
@@ -2582,7 +2755,7 @@ def main() -> int:
             moe_entry, launches["grouped_swiglu"] = phase12_speech_moe(tmp)
             entries.append(moe_entry)
         launches["decode_step"] += spec["decode_step"]
-        launches["ring_write"] = spec["ring_write"]
+        launches["ring_write"] += spec["ring_write"]
         _require(not any(m.split(".")[0] in ("jax", "crisperwhisper_tpu")
                          for m in sys.modules),
                  "jax or the JAX package was imported")

@@ -178,7 +178,7 @@ def _load() -> Kernels:
                   lib.cw_cross_attention_int8_v2):
         entry.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         entry.restype = i32
-    lib.cw_decode_gemv_attention.argtypes = [ptr] * 9 + [i32] * 12 + [ptr]
+    lib.cw_decode_gemv_attention.argtypes = [ptr] * 10 + [i32] * 12 + [ptr]
     lib.cw_decode_gemv_attention.restype = i32
     for entry in (lib.cw_moe_gate_up, lib.cw_moe_down):
         entry.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]

@@ -52,7 +52,10 @@
 //     4 to 16 lanes against q in registers, widening int8 and int4 without
 //     I2F (the value, sign bit flipped, in the low mantissa of 2^23, minus
 //     2^23 + 128 or + 8: exact), and reduced with shuffles. Scale, position
-//     mask (keys after `position` get -1e9) and key mask follow; where every
+//     mask (keys after `position` get -1e9; the position is an argument,
+//     or an int32 the kernel reads on the device, so that one launch
+//     captured in a CUDA graph serves every step of a decode: the grid
+//     covers all T keys either way) and key mask follow; where every
 //     key is masked the -1e9 scores tie and the row is uniform over T, as
 //     in the reference.
 //  3. One softmax for the cluster, in two passes: each block's max, then
@@ -190,6 +193,7 @@ struct Args {
   void* out;             // [B, H, Dh] f32 or bf16
   void* probs;           // [B, H, T] f32, or null
   void* aligned;         // [B, A, T] f32, or null
+  const int* position_at;  // int32 on the device, read as `position`, or null
   int rows, heads, keys, layer, position, has_position, n_align;
   int q_bf16, op_bf16, pv_bf16, out_bf16;
   int cluster, piece;    // blocks a (row, head); K/V rows a slot holds
@@ -426,6 +430,11 @@ __global__ void __launch_bounds__(kThreads, 8)
     qr[e] = a.op_bf16 ? round_bf16(x) : x;
   }
 
+  // the causal position, read on the device where the launch points to it
+  // and clamped to [-1, T] as the wrapper clamps the argument
+  const int position =
+      a.position_at ? max(min(*a.position_at, t), -1) : a.position;
+
   // scores, piece by piece as the K slots fill
   float mx = -INFINITY;
   for (int i = 0; i < n_pieces; ++i) {
@@ -451,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 8)
       if (part_lane == 0 && j < rows) {
         const int jl = c0 + j;
         if (ks) s *= __bfloat162float(kss[jl]);
-        if ((km && kms[jl] == 0) || (a.has_position && k0 + jl > a.position))
+        if ((km && kms[jl] == 0) || (a.has_position && k0 + jl > position))
           s = kMasked;
         sc[jl] = s;
         mx = fmaxf(mx, s);
@@ -609,8 +618,8 @@ extern "C" int cw_cross_attention_int8(const void* q, const void* k,
                                        int q_bf16, int cluster, int piece,
                                        void* stream) {
   const Args a{q, k, v, k_scale, v_scale, nullptr, nullptr, out, probs,
-               nullptr, b, h, t, 0, 0, 0, 0, q_bf16, q_bf16, 1, q_bf16,
-               cluster, piece};
+               nullptr, nullptr, b, h, t, 0, 0, 0, 0, q_bf16, q_bf16,
+               1, q_bf16, cluster, piece};
   return launch<int8_t>(a, stream);
 }
 
@@ -622,8 +631,8 @@ extern "C" int cw_cross_attention_int8_v2(const void* q, const void* k,
                                           int q_bf16, int cluster, int piece,
                                           void* stream) {
   const Args a{q, k, v, k_scale, v_scale, nullptr, nullptr, out, probs,
-               nullptr, b, h, t, 0, 0, 0, 0, q_bf16, 1, 1, q_bf16,
-               cluster, piece};
+               nullptr, nullptr, b, h, t, 0, 0, 0, 0, q_bf16, 1,
+               1, q_bf16, cluster, piece};
   return launch<int8_t>(a, stream);
 }
 
@@ -631,17 +640,19 @@ extern "C" int cw_cross_attention_int8_v2(const void* q, const void* k,
 // 1 packed int4 (uint8 [.., 32]), 2 bf16, 3 f32; scales [L, B, H, T] bf16
 // or null; key_mask [B, T] bytes or null; sel [H, A] f32 or null (n_align
 // = A); out [B, H, 64] f32, aligned [B, A, T] f32. Keys after `position`
-// are masked when has_position.
+// are masked when has_position; a non-null `position_at` (a 0-d int32 on
+// the device) is read in the kernel in its place, and masks.
 extern "C" int cw_decode_gemv_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* key_mask, const void* sel, void* out,
-    void* aligned, int cache_kind, int l, int b, int h, int t, int layer,
-    int position, int has_position, int n_align, int q_bf16, int cluster,
-    int piece, void* stream) {
+    void* aligned, const void* position_at, int cache_kind, int l, int b,
+    int h, int t, int layer, int position, int has_position, int n_align,
+    int q_bf16, int cluster, int piece, void* stream) {
   if (layer >= l) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, k_scale, v_scale, key_mask, sel, out, nullptr,
-               aligned, b, h, t, layer, position, has_position, n_align,
-               q_bf16, q_bf16, q_bf16, 0, cluster, piece};
+               aligned, static_cast<const int*>(position_at), b, h, t,
+               layer, position, has_position || position_at != nullptr,
+               n_align, q_bf16, q_bf16, q_bf16, 0, cluster, piece};
   switch (cache_kind) {
     case 0: return launch<int8_t>(a, stream);
     case 1: return launch<Int4Packed>(a, stream);

@@ -10,6 +10,21 @@ three spans (utils/tracing.py): ``cw.decode.step`` (the model step),
 ``cw.decode.sync`` (that read); the cache build and the prompt prefill
 are ``cw.decode.cache`` and ``cw.decode.prefill``.
 
+The plain one-token step (models/whisper.decode_step) runs as one CUDA
+graph a decode where ``step_graph_refusal`` finds nothing against it,
+decided once a decode from what the inputs show: CUDA tensors, no
+speech LM, no whole-step kernel, no tensor-parallel shard, and kernel 9
+taking both attention halves of every layer. The first step runs
+eagerly on a side stream (the warm-up of PyTorch's capture notes); the
+graph is then captured once, in ``cw.decode.capture``, into this
+thread's pool, and replayed for every later step, the token ids and the
+position (which kernel 9 and the ring write read on the device) filled
+into two static buffers first: three launches a step where the eager
+step launches hundreds. Each ``cw.decode.step`` record counts ``graph``: 1
+for a replay, 0 for an eager step. A decode's graph is never replayed
+after it returns, so the thread's next capture shares its memory pool
+and lets it go.
+
 With ``opts.b1_decode_kernel`` and a quantized serving cache, each step
 runs as one whole-step kernel (ops/decode_step.py): ``decode_step_b1`` at
 batch 1, ``decode_step_rows`` at 2-8 rows, under the reference's gates
@@ -28,6 +43,7 @@ probability. While spans record, it records its routing on the device
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,8 +52,11 @@ import torch
 from ..config import GenerationOptions, SpecialTokens, WhisperArch
 
 from ..models import speech_moe
-from ..models.whisper import decode_step, decode_step_multi, init_cache
+from ..models.whisper import (decode_step, decode_step_multi, init_cache,
+                              step_dtype)
 from ..ops import decode_step as step_kernel
+from ..ops.decode_attention import bind_decode_gemv
+from ..parallel.mesh import model_shard
 from ..utils import tracing
 from ..utils.tracing import trace_span
 from .processors import TimestampState, process_scores
@@ -88,6 +107,118 @@ def _key_mask(prompt_mask, n_after: int, dev) -> torch.Tensor | None:
     pm = _device(prompt_mask, dev).to(torch.bool)
     return torch.cat([pm, torch.ones((pm.shape[0], n_after),
                                      dtype=torch.bool, device=dev)], 1)
+
+
+def step_graph_refusal(params, arch, cache, key_mask, kernel5: bool
+                       ) -> str | None:
+    """Why a decode's one-token step does not run as one CUDA graph, or
+    None where it does. The loop's step is always one token a row at one
+    position for all rows; it can be captured once where its launches
+    take the same arguments at every step with the position held on the
+    device: not a speech LM's or the whole-step kernel's (kernel 5) own
+    step, no collective (a tensor-parallel tree all-reduces inside the
+    step), both attention halves of every layer through kernel 9 (the
+    plain attentions slice the ring at the position on the host), on a
+    CUDA card."""
+    if isinstance(arch, speech_moe.SpeechMoEArch):
+        return "a speech LM's step"
+    if kernel5:
+        return "the whole-step kernel"
+    if model_shard(params) is not None:
+        return "a tensor-parallel shard"
+    dtype = step_dtype(params, cache)
+    if (bind_decode_gemv(dtype, cache.self_k, cache.self_v,
+                         cache.self_k_scale, cache.self_v_scale,
+                         key_mask) is None
+            or bind_decode_gemv(dtype, cache.cross_k, cache.cross_v,
+                                cache.cross_k_scale,
+                                cache.cross_v_scale) is None):
+        return "kernel 9 declines the caches"
+    if not cache.self_k.is_cuda:
+        return "not on a CUDA card"
+    return None
+
+
+_CAPTURE = threading.local()        # .held: {device index: _CaptureContext}
+
+
+class _CaptureContext:
+    """A thread's side stream on one device and its last captured graph.
+    Each capture shares the memory pool of the graph before it (``pool()``,
+    PyTorch's way to share one), which this holds until then: a decode's
+    graph is never replayed after its decode returns, so the next
+    capture reuses its memory. The thread's own stream and pool keep two
+    threads' decodes apart, and one stream keeps one cuBLAS workspace."""
+
+    def __init__(self) -> None:
+        self.stream = torch.cuda.Stream()
+        self.last: torch.cuda.CUDAGraph | None = None
+
+    @classmethod
+    def of(cls, dev: torch.device) -> "_CaptureContext":
+        """This thread's context on ``dev``, made at its first graphed
+        decode there."""
+        held = getattr(_CAPTURE, "held", None)
+        if held is None:
+            held = _CAPTURE.held = {}
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        if index not in held:
+            with torch.cuda.device(index):
+                held[index] = cls()
+        return held[index]
+
+
+class _StepGraph:
+    """One decode's plain one-token step as a CUDA graph: the step reads
+    its token ids and position from two static buffers. The first call
+    runs it eagerly on the side stream (the warm-up, whose results are
+    the step's); ``capture`` records it once; each later call replays it
+    on the current stream and returns the graph's static outputs, which
+    the next replay overwrites."""
+
+    def __init__(self, step, params, arch, cache, align_sel, b: int,
+                 dev: torch.device):
+        self.step = step
+        self.args = (params, arch)
+        self.cache, self.align_sel = cache, align_sel
+        self.tokens = torch.empty((b,), dtype=torch.long, device=dev)
+        self.position = torch.zeros((), dtype=torch.int32, device=dev)
+        self.context = _CaptureContext.of(dev)
+        self.graph = self.out = None
+
+    def _run(self):
+        logits, _, align = self.step(*self.args, self.tokens, self.position,
+                                     self.cache, align_sel=self.align_sel)
+        return logits, align
+
+    def __call__(self, tokens: torch.Tensor, t: int):
+        self.tokens.copy_(tokens)
+        self.position.fill_(t)
+        if self.graph is not None:
+            self.graph.replay()
+            return self.out
+        main = torch.cuda.current_stream(self.tokens.device)
+        side = self.context.stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._run()
+        main.wait_stream(side)
+        return out
+
+    def capture(self) -> None:
+        """Record the step (nothing runs) on the side stream, into the
+        pool of the thread's last graph, which it then lets go."""
+        last = self.context.last
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.context.stream):
+            graph.capture_begin(pool=None if last is None else last.pool(),
+                                capture_error_mode="thread_local")
+            try:
+                self.out = self._run()
+            finally:
+                graph.capture_end()
+        self.graph = self.context.last = graph
 
 
 @torch.inference_mode()
@@ -196,13 +327,24 @@ def greedy_decode(params, arch: WhisperArch, specials: SpecialTokens,
         def step(*a, **kw):
             return decode_step(*a, key_mask=key_mask, pos_offset=pos_offset,
                                **kw)
+    graphed = None
+    if step_graph_refusal(params, arch, cache, key_mask,
+                          use_b1_kernel or use_rows_kernel) is None:
+        graphed = _StepGraph(step, params, arch, cache, align_sel, b, dev)
 
     # whether every row has finished is read after each step (before the
     # first, no row has)
     while t < t_total - 1:
-        with trace_span("cw.decode.step"):
-            logits, cache, align = step(params, arch, tokens[:, t], t,
-                                        cache, align_sel=align_sel)
+        if graphed is not None and graphed.graph is None and t >= p:
+            with trace_span("cw.decode.capture", rows=b):
+                graphed.capture()
+        replay = graphed is not None and graphed.graph is not None
+        with trace_span("cw.decode.step", graph=int(replay)):
+            if graphed is None:
+                logits, cache, align = step(params, arch, tokens[:, t], t,
+                                            cache, align_sel=align_sel)
+            else:
+                logits, align = graphed(tokens[:, t], t)
         with trace_span("cw.decode.select"):
             if t >= p and align is not None:
                 # record alignment rows for generated-query steps

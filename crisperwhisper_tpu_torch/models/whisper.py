@@ -424,14 +424,21 @@ def quantized_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _positions(position, s: int, dev: torch.device
-               ) -> tuple[torch.Tensor | None, int, int]:
+               ) -> tuple[torch.Tensor | None, int | torch.Tensor,
+                          int | None]:
     """(per-row start positions as a device int32 [B] tensor, or None for a
     scalar position; the lowest start; the end of the live ring prefix).
     A tensor position may lie on the host, where its bounds are read
-    without a device sync."""
-    if isinstance(position, torch.Tensor) and position.dim() == 1:
-        lo, hi = (int(v) for v in position.aminmax())
-        return position.to(device=dev, dtype=torch.int32), lo, hi + s
+    without a device sync. A one-token step's 0-d int32 position on
+    ``dev`` is not read back: it comes back as the start, with no end
+    (the caller checked its bounds)."""
+    if isinstance(position, torch.Tensor):
+        if position.dim() == 1:
+            lo, hi = (int(v) for v in position.aminmax())
+            return position.to(device=dev, dtype=torch.int32), lo, hi + s
+        if (s == 1 and position.dim() == 0 and position.device == dev
+                and position.dtype == torch.int32):
+            return None, position, None
     position = int(position)
     return None, position, position + s
 
@@ -460,7 +467,8 @@ def _write_block(cache: DecoderCache, li: int, position: int,
     ring (quantized over Dh when it is): at slots [position, position + S)
     for a scalar position, else row b at [pos_rows[b], pos_rows[b] + S)
     through ops/ring_write.py, all tensors in one call (``plan``: the
-    rings' launch plan, looked up once a block)."""
+    rings' launch plan, looked up once a block). A step at a position
+    held on the device passes it as ``pos_rows``, a copy for each row."""
     blocks = [k_new, v_new]
     if cache.self_k_scale is not None:
         kind = _kind(cache.self_k)
@@ -493,6 +501,14 @@ def _unbeam_rows(x: torch.Tensor, groups: int, s: int) -> torch.Tensor:
         .reshape(b0 * groups, h, s, -1)
 
 
+def step_dtype(params: Params, cache: DecoderCache) -> torch.dtype:
+    """A step's activation dtype: the ring's, or the token embedding's
+    when the ring is quantized."""
+    if cache.self_k_scale is not None:
+        return params["decoder"]["tok_emb"].dtype
+    return cache.self_k.dtype
+
+
 @torch.inference_mode()
 def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
                   position, cache: DecoderCache, align_sel, key_mask,
@@ -505,10 +521,15 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
     b, s = tokens.shape
     self_quant = cache.self_k_scale is not None
     cross_quant = cache.cross_k_scale is not None
-    dtype = dec["tok_emb"].dtype if self_quant else cache.self_k.dtype
+    dtype = step_dtype(params, cache)
     dev = tokens.device
     pos_rows, lo, end = _positions(position, s, dev)
-    if end > cache.self_k.shape[3] or lo < 0:
+    # a position held on the device (``_positions``): the ring write takes
+    # it as every row's, and kernel 9 reads it there
+    write_rows = pos_rows
+    if end is None:
+        write_rows = lo.expand(b).contiguous()
+    elif end > cache.self_k.shape[3] or lo < 0:
         raise ValueError(f"positions [{lo}, {end}) leave the cache of "
                          f"length {cache.self_k.shape[3]}")
     steps = torch.arange(s, device=dev)
@@ -542,6 +563,9 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
         cross_gemv = bind_decode_gemv(dtype, cache.cross_k, cache.cross_v,
                                       cache.cross_k_scale,
                                       cache.cross_v_scale)
+    if end is None and self_gemv is None:
+        raise ValueError("a position on the device needs kernel 9's self "
+                         "attention (decoding/greedy.step_graph_refusal)")
     mask = None
     if pos_rows is not None:
         # query i of row b attends to slots <= position[b] + i
@@ -565,12 +589,12 @@ def _decode_block(params: Params, arch: WhisperArch, tokens: torch.Tensor,
                              0 if shard is None else shard.index * local,
                              dev)
     plan = (ring_plan(_self_rings(cache))
-            if pos_rows is not None and cache.self_k.is_cuda else None)
+            if write_rows is not None and cache.self_k.is_cuda else None)
 
     for li, lp in enumerate(dec["layers"]):
         y = layer_norm(x, lp["ln1"])
         q, k_new, v_new = _self_qkv(y, lp["self"], dh, scale)
-        _write_block(cache, li, lo, pos_rows, k_new, v_new, plan)
+        _write_block(cache, li, lo, write_rows, k_new, v_new, plan)
         if self_gemv is not None:
             out = self_gemv(q[:, :, 0], li, position=lo)[:, :, None]
         elif self_quant:

@@ -12,7 +12,8 @@ one function with different rounding points (csrc/decode_attention.cu):
   * ``cross_attention_int8_v2``: the same with q rounded to bf16 first;
   * ``decode_gemv_attention``: one layer of a stacked cache, the products
     and the P.V operand in q's dtype, optional scales, causal ``position``
-    mask, ``key_mask`` and alignment selector ``sel``; returns out
+    mask (an int, or a 0-d int32 tensor that the kernel reads on the
+    device), ``key_mask`` and alignment selector ``sel``; returns out
     [B, H, D] f32 (and the aligned rows [B, A, T] f32 with ``sel``).
 
 The kernel splits each (row, head)'s keys across a cluster of blocks
@@ -34,7 +35,10 @@ only for CPU tensors. The head dim is 64 (every Whisper size).
 ``bind_decode_gemv`` is the decoder step's path to the v3 entry
 (models/whisper.py, every one-token step): the checks and the plan that
 hold for a step's stacked caches are made once, and each layer's call is
-a launch (on the CPU, the plain twin at any head dim). This module
+a launch (on the CPU, the plain twin at any head dim). A position held on
+the device leaves the launch's arguments the same at every step, so the
+greedy loop captures the step once as a CUDA graph and replays it
+(decoding/greedy.py). This module
 imports nothing of models/, which imports it; the quantized cache's int4
 packing lives here for that reason.
 """
@@ -281,8 +285,9 @@ def decode_gemv_plain(q: torch.Tensor, k_stack: torch.Tensor,
         s = s * k_scale[layer].float()
     t = s.shape[-1]
     if position is not None:
-        s = s.masked_fill(torch.arange(t, device=s.device) > int(position),
-                          NEG_INF)
+        at = position if isinstance(position, torch.Tensor) \
+            else int(position)
+        s = s.masked_fill(torch.arange(t, device=s.device) > at, NEG_INF)
     if key_mask is not None:
         s = s.masked_fill(key_mask[:, None, :] == 0, NEG_INF)
     p = torch.softmax(s, dim=-1)                          # [B, H, T]
@@ -306,7 +311,8 @@ def decode_gemv_attention(q: torch.Tensor, k_stack: torch.Tensor,
     q [B, H, D] f32/bf16, pre-scaled; k_stack/v_stack [L, B, H, T, D]
     int8/bf16/f32 or packed int4 [L, B, H, T, D / 2] uint8; k_scale /
     v_scale optional bf16 [L, B, H, T] (both or neither); ``position``
-    masks the keys after it; ``key_mask`` [B, T] (bool or bytes, 0 =
+    masks the keys after it: an int, or a 0-d int32 tensor on q's device,
+    which the kernel reads there; ``key_mask`` [B, T] (bool or bytes, 0 =
     masked); ``sel`` [H, A] head weights, one-hot in use (aligned row a
     is sum_h sel[h, a] * probs[h], as in the reference). Returns out [B,
     H, D] f32, or (out, aligned [B, A, T] f32) with ``sel``. On the card,
@@ -368,8 +374,11 @@ def _card_attend(q_dtype: torch.dtype, k_stack: torch.Tensor,
     """The v3 entry bound to stacked caches (and scales, key mask) that
     are checked and laid out as the kernel reads them (``_on_card``):
     ``attend(q, layer, position, sel)`` launches it for one layer. A call
-    checks only its q (dtype, shape, layout) and ``sel``, and counts in
-    ``decode_gemv_attention.launches``."""
+    checks only its q (dtype, shape, layout), its position and ``sel``,
+    and counts in ``decode_gemv_attention.launches`` (a call under a CUDA
+    graph's capture counts the launch it records once; the replays run it
+    uncounted, as a device trace shows). A position tensor goes to the
+    kernel as a pointer, read on the device."""
     n_layers, b, h, t, _ = k_stack.shape
     dev = k_stack.device
     index = k_stack.get_device()
@@ -401,9 +410,18 @@ def _card_attend(q_dtype: torch.dtype, k_stack: torch.Tensor,
             n_align = sel.shape[1]
             aligned = torch.empty((b, n_align, t), dtype=torch.float32,
                                   device=dev)
+        at = None
+        if isinstance(position, torch.Tensor):
+            if (position.dtype != torch.int32 or position.dim() != 0
+                    or position.device != dev):
+                raise ValueError(f"decode_gemv_attention: a position "
+                                 f"tensor must be 0-d int32 on {dev}, got "
+                                 f"{position.dtype} {list(position.shape)}"
+                                 f" on {position.device}")
+            at, position = position.data_ptr(), None
         launch(index, q.data_ptr(), *caches,
                None if sel is None else sel.data_ptr(), out.data_ptr(),
-               None if aligned is None else aligned.data_ptr(), kind,
+               None if aligned is None else aligned.data_ptr(), at, kind,
                n_layers, b, h, t, int(layer),
                0 if position is None else max(min(int(position), t), -1),
                int(position is not None), n_align, q_bf16, cluster, piece)
@@ -427,8 +445,10 @@ def bind_decode_gemv(q_dtype: torch.dtype, k_stack: torch.Tensor,
     twin takes any).
 
     Returns ``attend(q, layer, position=None, sel=None)``, q [B, H, Dh]
-    contiguous in ``q_dtype``, sel f32 [H, A] contiguous on the caches'
-    device: out [B, H, Dh] f32, or (out, aligned [B, A, T] f32) with sel.
+    contiguous in ``q_dtype``, position an int or a 0-d int32 tensor on
+    the caches' device (read there, so a captured launch follows it), sel
+    f32 [H, A] contiguous on the caches' device: out [B, H, Dh] f32, or
+    (out, aligned [B, A, T] f32) with sel.
     The caches are checked and, where they are not laid out as the kernel
     reads them, copied once here, not at every layer."""
     quantized = k_stack.dtype in (torch.int8, torch.uint8)

@@ -23,7 +23,9 @@ lean. What is fixed for a set of rings (addresses, column bytes, widest
 stores, rows, heads, ring length) is a ``RingPlan``, checked and packed
 for the C entry once per set (``ring_plan``, cached by the rings' key); a
 call checks only what can change (the blocks, the layer, the positions)
-and launches through ``_build.launcher``.
+and launches through ``_build.launcher``, counted in
+``write_block_columns_group.launches`` (a call under a CUDA graph's
+capture counts the launch it records once, not its replays).
 """
 
 from __future__ import annotations

@@ -991,6 +991,30 @@ def ring_write_error(pairs, li: int, positions: torch.Tensor) -> int:
                for (g, _), (w, _) in zip(got, want))
 
 
+# the device kernels of the wrappers that the plain step calls inside its
+# CUDA graph (decoding/greedy.py), by the wrapper's name
+STEP_KERNELS = {"decode_gemv_attention": "decode_attention_kernel",
+                "ring_write": "ring_write_kernel"}
+
+
+def device_kernel_counts(prof, kernels: dict[str, str]) -> dict[str, int]:
+    """Kernels that ran on the device in a finished ``torch.profiler``
+    trace with the CUDA activity, by key of ``kernels`` ({key: a word of
+    the kernel's name}). A launch captured in a CUDA graph counts at each
+    replay, where a wrapper's ``launches`` counts the one call that
+    recorded it."""
+    counts = dict.fromkeys(kernels, 0)
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CPU:
+            continue
+        name = ev.name()
+        for key, word in kernels.items():
+            if word in name:
+                counts[key] += 1
+                break
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # The TINY slice on two devices
 # ---------------------------------------------------------------------------

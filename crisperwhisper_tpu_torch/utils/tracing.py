@@ -5,9 +5,12 @@ opens ``cw.*`` spans at its layer boundaries (``pipeline/asr.py``:
 ``cw.call``, ``cw.mel``, ``cw.generate``, ``cw.stitch``;
 ``decoding/longform.py``: ``cw.seek``, ``cw.encode``, ``cw.decode``,
 ``cw.align_tail``, ``cw.readback``, ``cw.segments``;
-``decoding/greedy.py``: ``cw.decode.cache``, ``cw.decode.prefill`` and,
-in each loop iteration, ``cw.decode.step``, ``cw.decode.select``,
-``cw.decode.sync``; ``models/speech_moe.py``: ``cw.encode.adapter``),
+``decoding/greedy.py``: ``cw.decode.cache``, ``cw.decode.prefill``, in
+each loop iteration ``cw.decode.step`` (``graph``: 1 where the step was
+a replay of the decode's CUDA graph, 0 where it ran eagerly),
+``cw.decode.select``, ``cw.decode.sync``, and once a graphed decode
+``cw.decode.capture`` (the graph's capture and instantiation, between
+the first two steps); ``models/speech_moe.py``: ``cw.encode.adapter``),
 each with the counts of its boundary (rows, steps, recordings). A speech
 LM's decode records its routing on the device while spans record
 (``active()``, decided once a decode; no launch of its own in a step),

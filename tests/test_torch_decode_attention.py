@@ -245,6 +245,36 @@ def test_decode_gemv_attention_sums_heads_sharing_a_sel_column(experiments):
                           rtol=0, atol=PROBS_BAND)
 
 
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16", "f32"])
+@pytest.mark.parametrize("position", [-3, -1, 0, 20, T - 1, T + 5])
+def test_plain_twin_takes_a_position_on_the_device(kind, position):
+    """The plain twin of kernel 9 (and its bound form) masks by a 0-d int32
+    position tensor as by the int: the same bytes of out and aligned
+    rows, before the first key, inside the ring and past its end."""
+    g = torch.Generator().manual_seed(position + 40)
+    q = torch.randn((B, H, D), generator=g)
+    if kind in ("int8", "int4"):
+        vals = torch.randint(-7, 8, (2, L, B, H, T, D), generator=g,
+                             dtype=torch.int8)
+        k, v = (pack_int4(x) if kind == "int4" else x for x in vals)
+        ks, vs = (torch.rand((L, B, H, T), generator=g).to(torch.bfloat16)
+                  for _ in range(2))
+    else:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        q = q.to(dtype)
+        k, v = (torch.randn((L, B, H, T, D), generator=g).to(dtype)
+                for _ in range(2))
+        ks = vs = None
+    mask = torch.rand((B, T), generator=g) > 0.2
+    sel = torch.eye(H)[:, :3]
+    at = torch.tensor(position, dtype=torch.int32)
+    want = da.decode_gemv_attention(q, k, v, 1, ks, vs, position, mask, sel)
+    got = da.decode_gemv_attention(q, k, v, 1, ks, vs, at, mask, sel)
+    bound = da.bind_decode_gemv(q.dtype, k, v, ks, vs, mask)(q, 1, at, sel)
+    for w, a, b in zip(want, got, bound):
+        assert torch.equal(w, a) and torch.equal(w, b)
+
+
 def test_cpu_wrappers_refuse_other_devices():
     q = torch.zeros((1, 1, 1, D), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

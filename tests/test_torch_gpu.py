@@ -1437,6 +1437,154 @@ def test_one_token_step_routes_through_kernel_9(gen, monkeypatch):
         assert err <= testing.DA_PROBS_BAND, (slot, err)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_decode_gemv_kernel_reads_its_position_on_the_device(gen, kind):
+    """Kernel 9 bound to a ring of 100 (layer 1 of 2, 16 rows, 20 heads,
+    a one-hot sel) at a 0-d int32 position on the device: the bytes of
+    the integer form at positions -1, 0, 61 and T - 1; then the launch
+    captured once in a CUDA graph, the position moved in place before
+    each replay, and the same bytes again."""
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    own = torch.Generator(device="cuda").manual_seed(31)
+    t = 100
+    q, k, ks, v, vs = testing.decode_attention_inputs((2, 16, 20, t, 64),
+                                                      kind, own)
+    if kind == "bf16":
+        ks = vs = None
+    sel = torch.zeros((20, 3), device="cuda")
+    sel[4, 0], sel[9, 1], sel[17, 2] = 1.0, 1.0, 1.0
+    attend = da.bind_decode_gemv(torch.bfloat16, k, v, ks, vs)
+    at = torch.zeros((), dtype=torch.int32, device="cuda")
+    positions = (-1, 0, 61, t - 1)
+    wants = [attend(q, 1, pos, sel) for pos in positions]
+    before = da.decode_gemv_attention.launches
+    for pos, want in zip(positions, wants):
+        at.fill_(pos)
+        got = attend(q, 1, at, sel)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), pos
+    assert da.decode_gemv_attention.launches == before + len(positions)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = attend(q, 1, at, sel)
+    for pos, want in reversed(list(zip(positions, wants))):
+        at.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, want)), pos
+    with pytest.raises(ValueError, match="0-d int32"):
+        attend(q, 1, at.long(), sel)
+
+
+# (width, rows, quantize="serving"'s weights and caches)
+_GRAPHED = {"tiny-b16-bf16": ("tiny", 16, False),
+            "tiny-b64-bf16": ("tiny", 64, False),
+            "tiny-b16-serving": ("tiny", 16, True),
+            "large-v3-b16-bf16": ("large-v3", 16, False),
+            "large-v3-b64-bf16": ("large-v3", 64, False),
+            "large-v3-b16-serving": ("large-v3", 16, True)}
+
+
+@pytest.mark.parametrize("case", list(_GRAPHED))
+def test_greedy_decode_replays_one_graph_equal_to_the_eager_loop(
+        gen, monkeypatch, case):
+    """greedy_decode with its step captured as one CUDA graph against the
+    same decode with the gate closed (today's eager step at an int
+    position): the same tokens, and sum_logprobs, no-speech probabilities,
+    alignment rows and the final cache equal bit for bit (the graph holds
+    the eager step's kernels in their order; the ring write and kernel 9
+    read the position on the device). bf16 weights and caches, or int8
+    weights with an int4 cross cache and an int8 ring; TINY widths with
+    one head, and large-v3 widths with four decoder layers; a three-token
+    prompt,
+    alignment heads, eot suppressed so every row runs all 24 steps. The
+    step records: the first eager, every later one a replay, one capture;
+    the device trace (torch.profiler) holds kernel 9 as often as the
+    eager loop launches it, and the ring write once a layer a step."""
+    from dataclasses import replace
+    from crisperwhisper_tpu_torch.config import (GenerationOptions,
+                                                 SpecialTokens, WhisperArch)
+    from crisperwhisper_tpu_torch.decoding import greedy
+    from crisperwhisper_tpu_torch.models import whisper as W
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    from crisperwhisper_tpu_torch.ops import ring_write as rw
+    from crisperwhisper_tpu_torch.utils import tracing
+    width, rows, serving = _GRAPHED[case]
+    own = torch.Generator(device="cuda").manual_seed(29)
+    if width == "tiny":
+        # one head of 64 (kernel 9's head dim; TINY's four heads of 16
+        # keep the eager step on the card)
+        arch = replace(WhisperArch(**testing.TINY),
+                       encoder_attention_heads=1, decoder_attention_heads=1)
+        specials, heads = testing.TINY_SPECIALS, [(0, 0), (1, 0)]
+    else:
+        arch = replace(WhisperArch.large_v3(), encoder_layers=1,
+                       decoder_layers=4)
+        specials, heads = SpecialTokens(), testing.large_v3_align_heads(arch)
+    params = testing.random_affine(
+        W.init_params(arch, own, "cuda", torch.bfloat16), 29)
+    if serving:
+        params = testing.quantized_decoder(params, arch)
+    enc = torch.randn((rows, arch.max_source_positions, arch.d_model),
+                      generator=own, device="cuda").to(torch.bfloat16)
+    prompt = torch.tensor([[specials.sot, specials.language_begin,
+                            specials.transcribe]] * rows)
+    suppress = torch.zeros(arch.vocab_size, dtype=torch.bool, device="cuda")
+    suppress[specials.eot] = True
+    n_new, n_layers = 24, arch.decoder_layers
+
+    def decode(graphed: bool):
+        caches = []
+        with monkeypatch.context() as m:
+            init = greedy.init_cache
+            m.setattr(greedy, "init_cache", lambda *a, **kw: caches.append(
+                init(*a, **kw)) or caches[-1])
+            if not graphed:
+                m.setattr(greedy, "step_graph_refusal", lambda *a: "off")
+            before = (da.decode_gemv_attention.launches,
+                      rw.write_block_columns_group.launches)
+            cuda = torch.profiler.ProfilerActivity.CUDA
+            with torch.profiler.profile(activities=[cuda]) as prof, \
+                    tracing.recording() as recs:
+                res = greedy.greedy_decode(
+                    params, arch, specials, GenerationOptions(), enc, prompt,
+                    max_new_tokens=n_new, suppress_mask=suppress,
+                    align_sel=W.alignment_selector(arch, heads),
+                    return_timestamps=False,
+                    cross_cache_dtype="int4" if serving else None,
+                    self_cache_dtype="int8" if serving else None)
+                torch.cuda.synchronize()
+            calls = (da.decode_gemv_attention.launches - before[0],
+                     rw.write_block_columns_group.launches - before[1])
+        ran = testing.device_kernel_counts(prof, testing.STEP_KERNELS)
+        steps = [r.counts["graph"] for r in recs
+                 if r.name == "cw.decode.step"]
+        captures = sum(r.name == "cw.decode.capture" for r in recs)
+        return (res, caches[0], steps, captures, calls,
+                (ran["decode_gemv_attention"], ran["ring_write"]))
+
+    eager, eager_cache, eager_steps, eager_captures, eager_n, eager_ran = \
+        decode(False)
+    res, cache, steps, captures, calls, ran = decode(True)
+    assert res.steps == eager.steps == n_new
+    assert eager_steps == [0] * n_new and eager_captures == 0
+    assert steps == [0] + [1] * (n_new - 1) and captures == 1
+    # the eager loop: a launch a call, the ring written by a slice
+    assert eager_n == eager_ran == (2 * n_layers * n_new, 0)
+    # graphed: the wrappers are called at the warm-up step and once more
+    # in the capture; the device runs the kernels at every step
+    assert calls == (2 * n_layers * 2, n_layers * 2)
+    assert ran == (2 * n_layers * n_new, n_layers * n_new)
+    assert torch.equal(res.sequences, eager.sequences)
+    for name in ("num_generated", "sum_logprobs", "no_speech_probs",
+                 "align_probs"):
+        assert torch.equal(getattr(res, name), getattr(eager, name)), name
+    for name in ("self_k", "self_v", "self_k_scale", "self_v_scale",
+                 "cross_k", "cross_v", "cross_k_scale", "cross_v_scale"):
+        a, b = getattr(cache, name), getattr(eager_cache, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(
+            a, b)), name
+
+
 @pytest.mark.parametrize("rows", [64, 4096])
 def test_grouped_expert_kernel_matches_plain(gen, rows):
     """One layer of Uni-MoE-2.0-Omni's routed experts at published widths

@@ -416,3 +416,114 @@ def test_bind_decode_gemv_declines_what_the_step_must_not_route(case):
             "too-many-keys": (torch.float32,) + (torch.zeros(
                 (1, 1, 1, da.MAX_KEYS + 1, 16)),) * 2}[case]
     assert da.bind_decode_gemv(*args) is None
+
+
+# --- the one-token step at a position held on the device -----------------
+#
+# The greedy loop's CUDA graph (decoding/greedy.py) replays one step at
+# every position, so the step reads its position from a 0-d int32 tensor
+# on the device: kernel 9 masks by it there, the ring write takes it as
+# every row's, the learned-position lookup indexes by it. On the CPU the
+# same step runs through the plain twins, and must give the int
+# position's bytes.
+
+@pytest.mark.parametrize("position,offset", [(0, False), (_RING // 2, True),
+                                             (_RING - 1, False)])
+@pytest.mark.parametrize("variant", list(_GEMV_VARIANTS))
+@pytest.mark.parametrize("kind", list(_GEMV_KINDS))
+def test_one_token_step_at_a_device_position_equals_the_int_position(
+        monkeypatch, kind, variant, position, offset):
+    """Logits, aligned rows and every cache byte equal, bit for bit, with
+    and without a position offset (the conditioned prompt's shift of the
+    learned lookup); the device position's ring write is the per-row
+    write, once a layer."""
+    from crisperwhisper_tpu_torch import testing
+    from crisperwhisper_tpu_torch.models import whisper as W
+    params, arch, tokens, cache, sel, key_mask = _gemv_case(kind, variant,
+                                                            position)
+    writes = []
+    write = W.write_block_columns_group
+    monkeypatch.setattr(W, "write_block_columns_group",
+                        lambda *a: writes.append(a[2]) or write(*a))
+    pos_offset = (torch.tensor([0, 1, position], dtype=torch.int32)
+                  if offset else None)
+    by_int = testing.clone_cache(cache)
+    want = W.decode_step(params, arch, tokens, position, by_int,
+                         align_sel=sel, key_mask=key_mask,
+                         pos_offset=pos_offset)
+    got = W.decode_step(params, arch, tokens,
+                        torch.tensor(position, dtype=torch.int32), cache,
+                        align_sel=sel, key_mask=key_mask,
+                        pos_offset=pos_offset)
+    assert len(writes) == arch.decoder_layers
+    assert all(w.tolist() == [position] * _ROWS for w in writes)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    for name in ("self_k", "self_v", "self_k_scale", "self_v_scale",
+                 "cross_k", "cross_v"):
+        a, b = getattr(cache, name), getattr(by_int, name)
+        assert (a is None) == (b is None) and (a is None or torch.equal(
+            a, b)), name
+
+
+def test_a_device_position_needs_kernel_9():
+    """Where kernel 9 declines the caches (here, bound to decline) a
+    device position has no plain path that could read it: the step
+    refuses it rather than read it back."""
+    from crisperwhisper_tpu_torch.models import whisper as W
+    params, arch, tokens, cache, sel, _ = _gemv_case("f32", "no-heads", 3)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(W, "bind_decode_gemv", lambda *a, **kw: None)
+        with pytest.raises(ValueError, match="needs kernel 9"):
+            W.decode_step(params, arch, tokens,
+                          torch.tensor(3, dtype=torch.int32), cache)
+
+
+@pytest.mark.parametrize("case,reason", [
+    ("bulk", "not on a CUDA card"),
+    ("no-key-mask", "not on a CUDA card"),
+    ("serving-caches", "not on a CUDA card"),
+    ("shard", "a tensor-parallel shard"),
+    ("f16-ring", "kernel 9 declines the caches"),
+    ("f16-cross", "kernel 9 declines the caches"),
+    ("too-many-keys", "kernel 9 declines the caches"),
+    ("speech-lm", "a speech LM's step"),
+    ("kernel-5", "the whole-step kernel")])
+def test_step_graph_gate_reads_what_the_inputs_show(case, reason):
+    """The greedy loop's decision to capture its step as a CUDA graph: at
+    the bulk shape (bf16 caches, alignment heads, a key mask), without a
+    key mask, and on serving's int8 ring and int4 cross cache every check
+    holds but the card's, which the CPU fails (on the card the gate
+    opens: tests/test_torch_gpu.py); each other case fails its own
+    check."""
+    from dataclasses import replace as dc_replace
+    from crisperwhisper_tpu_torch.decoding.greedy import step_graph_refusal
+    from crisperwhisper_tpu_torch.models import speech_moe
+    from crisperwhisper_tpu_torch.ops import decode_attention as da
+    from crisperwhisper_tpu_torch.parallel.mesh import REDUCE
+    kind, variant = {"no-key-mask": ("bf16", "one-head"),
+                     "serving-caches": ("int4-ring-bf16", "one-head")}.get(
+                         case, ("bf16", "two-heads-key-mask"))
+    params, arch, _, cache, _, key_mask = _gemv_case(kind, variant, 4)
+    if case == "shard":
+        layer0 = dict(params["decoder"]["layers"][0])
+        layer0["self"] = dict(layer0["self"])
+        layer0["self"]["o"] = {**layer0["self"]["o"], REDUCE: object()}
+        params = {**params, "decoder": {
+            **params["decoder"],
+            "layers": [layer0] + params["decoder"]["layers"][1:]}}
+    elif case == "f16-ring":
+        cache = dc_replace(cache, self_k=cache.self_k.half(),
+                           self_v=cache.self_v.half())
+    elif case == "f16-cross":
+        cache = dc_replace(cache, cross_k=cache.cross_k.half(),
+                           cross_v=cache.cross_v.half())
+    elif case == "too-many-keys":
+        ring = cache.self_k.shape[:3] + (da.MAX_KEYS + 1,) \
+            + cache.self_k.shape[4:]
+        cache = dc_replace(cache, self_k=torch.zeros(ring).bfloat16(),
+                           self_v=torch.zeros(ring).bfloat16())
+        key_mask = None
+    elif case == "speech-lm":
+        arch = speech_moe.SpeechMoEArch(audio=arch)
+    assert step_graph_refusal(params, arch, cache, key_mask,
+                              case == "kernel-5") == reason

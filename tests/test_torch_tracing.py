@@ -132,6 +132,10 @@ def test_greedy_decode_leaves_three_spans_an_iteration(pipe):
     assert res.steps == int(res.num_generated.max()) > 0
     for name in ("cw.decode.step", "cw.decode.select", "cw.decode.sync"):
         assert names.count(name) == res.steps, name
+    # on the CPU every step runs eagerly, and no graph is captured
+    assert all(r.counts == {"graph": 0} for r in recs
+               if r.name == "cw.decode.step")
+    assert "cw.decode.capture" not in names
     assert names[:2] == ["cw.decode.cache", "cw.decode.prefill"]
     assert names[2:5] == ["cw.decode.step", "cw.decode.select",
                           "cw.decode.sync"]
